@@ -1,0 +1,78 @@
+"""MIN routing tables for Slim Fly (paper §IV), ported from
+`repro.core.routing`.
+
+The distance matrix comes from (min,+) APSP on the device (the CUDA
+kernel in `repro_torch.kernels.minplus` on the card); the next-hop
+table is derived from it on the host in numpy, as in the reference.
+Failure masks, equal-cost sets, the channel-dependency-graph deadlock
+check, channel loads and the routed resiliency metrics are not part of
+this slice of the port (ROADMAP Queue 1 #3 and #10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import numpy as np
+
+from .. import resolve_device
+from ..kernels import apsp
+from .topology import Topology
+
+__all__ = ["UNREACH", "RoutingTables", "build_routing"]
+
+# Hop-distance sentinel for pairs disconnected by link failures (int16,
+# and the int32 sum of two stays far from overflow), as in the reference.
+UNREACH = np.int16(1 << 14)
+
+
+@dataclasses.dataclass
+class RoutingTables:
+    topo: Topology
+    dist: np.ndarray             # [N_r, N_r] int16 hops (UNREACH = cut off)
+    next_hop: np.ndarray         # [N_r, N_r] int32 deterministic MIN next hop
+    adj: np.ndarray              # adjacency the tables were computed on
+
+    def min_path(self, s: int, d: int) -> List[int]:
+        """Deterministic minimal path (router sequence, inclusive)."""
+        assert self.dist[s, d] < UNREACH, f"no route {s} -> {d}"
+        path = [s]
+        cur = s
+        while cur != d:
+            cur = int(self.next_hop[cur, d])
+            path.append(cur)
+            assert len(path) <= self.dist[s, d] + 1
+        return path
+
+
+def build_routing(topo: Topology, device=None,
+                  kernel_path: str = "auto") -> RoutingTables:
+    """Distance and MIN next-hop tables of a healthy fabric.
+
+    APSP runs on `device` (default ``cuda``; raises without a card
+    unless ``device="cpu"`` is asked for), through the (min,+) kernel
+    for CUDA tensors.  The kernel and its plain version both saturate
+    at 3e38 like the reference's Pallas path; the reference's
+    `SimTables.build` takes its unsaturated jnp path instead
+    (src/repro/sim/tables.py:134), but every distance below 1e37 is the
+    same either way, and only those reach the tables."""
+    dev = resolve_device(device)
+    n = topo.n_routers
+    adj = topo.adj
+    max_d = topo.params.get("diameter_hint", min(n, 64))
+    d = apsp(adj, device=dev, max_diameter=max_d,
+             kernel_path=kernel_path).cpu().numpy()
+    assert (d < 1e37).all(), "disconnected topology"
+    dist = d.astype(np.int16)
+
+    # next_hop[r, t] = lowest-index neighbor n of r with dist[n,t] = dist[r,t]-1
+    next_hop = np.full((n, n), -1, dtype=np.int32)
+    for r in range(n):
+        nbrs = np.nonzero(adj[r])[0]                      # [deg]
+        good = dist[nbrs, :] == (dist[r, :][None, :] - 1)  # [deg, n]
+        first = np.argmax(good, axis=0)                   # lowest index
+        has = good.any(axis=0)
+        next_hop[r, has] = nbrs[first[has]]
+        next_hop[r, r] = r
+    return RoutingTables(topo=topo, dist=dist, next_hop=next_hop, adj=adj)

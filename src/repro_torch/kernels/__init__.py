@@ -1,0 +1,29 @@
+"""Hand-written CUDA kernels of the port, each with its plain PyTorch
+version and a launch count.
+
+- minplus: (min,+) matrix product, APSP for the routing tables
+           (replaces `repro.kernels.minplus.minplus_pallas`)
+- alloc:   W-round switch allocation of the flit engine
+           (replaces `repro.kernels.alloc.alloc_rounds_pallas`)
+- ops:     seeded distances and APSP; ref: the plain versions.
+Sources are under csrc/; `_cuda` builds them with nvcc on first use.
+"""
+
+from .alloc import alloc_rounds, alloc_rounds_cuda
+from .minplus import minplus_cuda
+from .ops import apsp, minplus, seed_distance
+
+__all__ = ["KERNELS", "alloc_rounds", "apsp", "launch_counts",
+           "minplus", "reset_launch_counts", "seed_distance"]
+
+# kernel name -> its wrapper, which counts its own launches
+KERNELS = {"minplus": minplus_cuda, "alloc_rounds": alloc_rounds_cuda}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

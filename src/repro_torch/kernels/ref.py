@@ -1,0 +1,173 @@
+"""Plain PyTorch versions of the port's CUDA kernels.
+
+Each function here has the same contract as one hand-written kernel in
+`repro_torch.kernels` and is what a kernel wrapper runs for a tensor
+that lies on the CPU; `chip_smoke.py` and the `cuda`-marked tests hold
+each kernel against it on the card.  They follow the reference's
+oracles in `repro.kernels.ref` with two deliberate differences:
+
+- `minplus_ref` saturates at 3e38 like the reference's Pallas kernel
+  (`repro.kernels.minplus.minplus_pallas`), not like its unsaturated
+  jnp oracle, and it is chunked over k so that the q=19 squaring does
+  not broadcast a 1.5 GB [M, K, N] tensor.  min is exact in any order,
+  so the chunking changes no value.
+- `alloc_rounds_ref` is the reference's gather form
+  (``use_gather=True``), with the per-channel minimum taken by a
+  scatter-min over a [B, P+1] buffer instead of a dense [B, P, K] mask.
+  Both give the same winners: priorities are distinct.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["BIG_F", "KSHIFT", "minplus_ref", "alloc_rounds_ref"]
+
+BIG_F = 3.0e38   # +inf stand-in of the distance matrices (inf-free sums)
+
+# Requests of a router are indexed 0..K-1 with K = PV + PE (net queues
+# then source queues).  Channel arbitration packs (priority, request
+# index) into one int32 as rot * KSHIFT + k; KSHIFT must exceed K and
+# R * KSHIFT must stay below 2^31 (repro.kernels.ref documents the
+# headroom: q=25 leaves ~40x).
+KSHIFT = 256
+
+# elements of the [B, M, kc, N] broadcast one chunk of the plain
+# min-plus may materialise (64 MiB of float32)
+_MINPLUS_CHUNK_ELEMS = 1 << 24
+
+
+def minplus_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C[b, i, j] = min(min_k A[b, i, k] + B[b, k, j], 3e38).
+
+    a: [B, M, K] or [M, K]; b: [B, K, N] or [K, N]; float32.  Entries
+    >= 1e38 mean "unreachable"; 3e38 + 3e38 overflows to inf in float32,
+    so the result is saturated back to 3e38 (as `minplus_pallas` does).
+    """
+    squeeze = a.dim() == 2
+    if squeeze:
+        a, b = a[None], b[None]
+    B, M, K = a.shape
+    N = b.shape[2]
+    acc = torch.full((B, M, N), BIG_F, dtype=a.dtype, device=a.device)
+    kc = max(1, _MINPLUS_CHUNK_ELEMS // max(1, B * M * N))
+    for k0 in range(0, K, kc):
+        k1 = min(K, k0 + kc)
+        part = (a[:, :, k0:k1, None] + b[:, None, k0:k1, :]).amin(dim=2)
+        torch.minimum(acc, part, out=acc)
+    return acc[0] if squeeze else acc
+
+
+def alloc_rounds_ref(cycle: int, out_n, ej_n, sp_n, cnt_n,
+                     out_s, ej_s, sp_s, cnt_s, epr,
+                     *, W: int, P: int, V: int, PE: int, p_budget: int,
+                     NQ: int, R: int):
+    """W rounds of rotating-priority switch allocation, all routers.
+
+    Same contract as `repro.kernels.ref.alloc_rounds_ref` (int32 in and
+    out; B = routers, PV = P*V):
+      out_n/ej_n/sp_n: [B, PV, W] desired out port / eject flag / space
+      cnt_n:           [B, PV]    queue depth at cycle start (0 = dead)
+      out_s/ej_s/sp_s: [B, PE, W] the router's endpoint (source) queues
+      cnt_s:           [B, PE]
+      epr:             [B]        endpoint-block index of the router (-1)
+    Returns (chan_slot_net [B, PV], ej_slot_net [B, PV],
+             chan_slot_src [B, PE], ej_slot_src [B, PE], win_req [B, P]).
+
+    `cycle` is a host integer.  cycle * 7919 + qidx + w * 131 stays
+    below 2^31 for cycle <= 200k and R <= 2^18, so every term here is
+    non-negative int32 and `%` (floor-mod in torch, as in jnp) never
+    sees a negative operand -- also on rows with epr = -1, whose
+    source-queue ids NQ - PE + col are still >= 0 (and masked by
+    cnt_s == 0).
+    """
+    B = cnt_n.shape[0]
+    PV = P * V
+    K = PV + PE
+    assert K < KSHIFT, f"request index overflows KSHIFT lanes: {K}"
+    dev = cnt_n.device
+    i32 = torch.int32
+    intmax = torch.iinfo(i32).max
+
+    col_pv = torch.arange(PV, dtype=i32, device=dev)[None, :]
+    col_pe = torch.arange(PE, dtype=i32, device=dev)[None, :]
+    col_k = torch.arange(K, dtype=i32, device=dev)[None, :]
+    rows = torch.arange(B, dtype=i32, device=dev)[:, None]
+    qidx_n = rows * PV + col_pv                      # global queue ids
+    qidx_s = NQ + epr.to(i32)[:, None] * PE + col_pe
+
+    s_rot = cycle % PV                               # ejection rotation
+    net_first = cycle % 2 == 0
+    base = cycle * 7919
+
+    granted_n = torch.zeros((B, PV), dtype=torch.bool, device=dev)
+    granted_s = torch.zeros((B, PE), dtype=torch.bool, device=dev)
+    chan_taken = torch.zeros((B, P + 1), dtype=torch.bool, device=dev)
+    budget = torch.full((B, 1), p_budget, dtype=i32, device=dev)
+    cs_n = torch.full((B, PV), -1, dtype=i32, device=dev)
+    es_n = torch.full((B, PV), -1, dtype=i32, device=dev)
+    cs_s = torch.full((B, PE), -1, dtype=i32, device=dev)
+    es_s = torch.full((B, PE), -1, dtype=i32, device=dev)
+    win_req = torch.full((B, P), -1, dtype=i32, device=dev)
+
+    out_kw = torch.cat([out_n, out_s], dim=1)        # [B, K, W]
+    qidx_k = torch.cat([qidx_n, qidx_s], dim=1)
+    rot0 = (qidx_k + base) % R                       # [B, K]
+
+    for w in range(W):
+        vn = (cnt_n > w) & ~granted_n
+        vs = (cnt_s > w) & ~granted_s
+        ejn = ej_n[:, :, w] != 0
+        ejs = ej_s[:, :, w] != 0
+        spn = sp_n[:, :, w] != 0
+        sps = sp_s[:, :, w] != 0
+
+        # --- ejection grants: rotated exclusive-prefix ranks against a
+        # budget of p ejection ports.  torch.cumsum/sum promote int32 to
+        # int64 unless told otherwise; jnp keeps int32, so say int32.
+        mn = (vn & ejn).to(i32)
+        ms = (vs & ejs).to(i32)
+        cn = torch.cumsum(mn, dim=1, dtype=i32) - mn
+        sn = mn.sum(dim=1, keepdim=True, dtype=i32)
+        c_at = cn[:, s_rot:s_rot + 1]
+        rank_n = cn - c_at + torch.where(col_pv < s_rot, sn, 0)
+        cs_pre = torch.cumsum(ms, dim=1, dtype=i32) - ms
+        ss = ms.sum(dim=1, keepdim=True, dtype=i32)
+        rank_nf = rank_n if net_first else rank_n + ss
+        rank_sf = cs_pre + sn if net_first else cs_pre
+        g_ej_n = (mn > 0) & (rank_nf < budget)
+        g_ej_s = (ms > 0) & (rank_sf < budget)
+        budget = (budget - g_ej_n.sum(dim=1, keepdim=True, dtype=i32)
+                  - g_ej_s.sum(dim=1, keepdim=True, dtype=i32))
+
+        # --- channel grants: the lowest packed (rotating priority,
+        # request index) among the live requests of each output port.
+        # Requests with no port, or whose port was taken in an earlier
+        # round, go to the spare column P, which is never read.
+        elig = torch.cat([vn & ~ejn & spn, vs & ~ejs & sps], dim=1)
+        cmb = ((rot0 + w * 131) % R) * KSHIFT + col_k            # [B, K]
+        out_all = out_kw[:, :, w]
+        # port indices are clamped before every gather: torch raises on
+        # an index out of range where jnp clamps (and an out port >= P
+        # requests nothing, as in the reference)
+        out_c = out_all.clamp(0, P - 1)
+        live = (elig & (out_all >= 0) & (out_all < P)
+                & ~chan_taken.gather(1, out_c.long()))
+        tgt = torch.where(live, out_c, P).long()
+        cmin = torch.full((B, P + 1), intmax, dtype=i32, device=dev)
+        cmin.scatter_reduce_(1, tgt, cmb, reduce="amin", include_self=True)
+        won = cmin[:, :P] < intmax
+        # cmb values are distinct, so equality names exactly one winner
+        win_all = live & (cmb == cmin.gather(1, out_c.long()))
+        win_n, win_s = win_all[:, :PV], win_all[:, PV:]
+        chan_taken[:, :P] |= won
+        win_req = torch.where(won, cmin[:, :P] % KSHIFT, win_req)
+
+        granted_n = granted_n | win_n | g_ej_n
+        granted_s = granted_s | win_s | g_ej_s
+        cs_n = torch.where(win_n, w, cs_n)
+        es_n = torch.where(g_ej_n, w, es_n)
+        cs_s = torch.where(win_s, w, cs_s)
+        es_s = torch.where(g_ej_s, w, es_s)
+
+    return cs_n, es_n, cs_s, es_s, win_req

@@ -1,0 +1,309 @@
+"""Input-queued flit switch (paper §V), ported from `repro.sim.engine`.
+
+`SwitchCore` holds one fabric's tables on a device and runs the parts
+of a cycle that every engine shares: the credit view (`occupancy`),
+per-flit route choice (`route_decision`), tail enqueue into the source
+queues (`inject`), and `alloc`: one W-slot window of every queue, route
+desires for all W slots at once, W rounds of rotating-priority
+allocation (the CUDA kernel `repro_torch.kernels.alloc` on the card),
+then arrivals and shift-down compaction.  The model and the two
+identities that make the single-window gather exact are those of the
+reference (module docstring of `repro.sim.engine`).
+
+The reference is a pure function whose scan carry is donated; here the
+queue arrays are updated IN PLACE (`inject` and `alloc` write into the
+tensors they are given and return them), which saves a copy of the
+16 MB network queue array per cycle at q=19.
+
+This slice ports table-routed MIN on a healthy fabric without
+telemetry.  VAL/UGAL need the random source of ROADMAP Queue 1 #6 (and
+the `ugal_select` kernel); ECMP comes with the failure-aware tables of
+the same item; source routing with Queue 1 #8; telemetry with #9.  The
+open-loop `simulate` is Queue 1 #6.
+
+Indexing.  jnp clamps an out-of-range gather index and wraps a negative
+one; torch raises on the CPU and asserts on the card.  Every index below
+is clamped visibly; garbage records in zero-filled or stale queue slots
+(valid records or zeros) index row 0 harmlessly, and are never granted
+because the allocation masks requests by the cycle-start queue depth.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..kernels import alloc_rounds
+from ..kernels._cuda import KERNEL_PATHS
+from .packed import (MAX_ROUTERS, PK, bump_hops_word, pk_dst, pk_hops,
+                     pk_inter, pk_phase)
+from .tables import SimTables
+
+__all__ = ["BIG", "OCC_CAP", "SimConfig", "SwitchCore"]
+
+BIG = 1 << 30
+# occupancy values entering UGAL scores are clamped here (kept for the
+# UGAL slice, ROADMAP Queue 1 #6)
+OCC_CAP = 1 << 20
+
+I32 = torch.int32
+
+
+@dataclasses.dataclass(frozen=True)
+class SimConfig:
+    """The switch's configuration.  The open-loop fields of the
+    reference's SimConfig (injection rate, cycles, warmup, seed, VAL
+    candidates) come with `simulate` and UGAL (ROADMAP Queue 1 #6)."""
+    vcs: int = 4
+    q_net: int = 16                   # per-(port, VC) buffer
+    q_src: int = 64
+    mode: str = "min"                 # only "min" in this slice
+    lookahead: int = 4                # allocation window W
+    # auto = the CUDA kernels for tensors on the card, their plain
+    # versions on the CPU; ref / cuda force one (tests, chip_smoke.py)
+    kernel_path: str = "auto"
+
+
+_NOT_PORTED = {
+    "val": "ROADMAP Queue 1 #6 (random source, VAL/UGAL)",
+    "ugal_l": "ROADMAP Queue 1 #6 (random source, VAL/UGAL, ugal_select)",
+    "ugal_g": "ROADMAP Queue 1 #6 (random source, VAL/UGAL, ugal_select)",
+    "ecmp": "ROADMAP Queue 1 #6 (ECMP dead-port fallback)",
+}
+
+
+def check_i32(**arrays) -> None:
+    """Every array of the engine state stays int32: torch promotes int32
+    to int64 where jnp does not (sums, cumsums, arange), and the packed
+    records and priorities are defined on int32 words."""
+    for name, t in arrays.items():
+        assert t.dtype == I32, f"engine state {name} must be int32, got {t.dtype}"
+
+
+class SwitchCore:
+    """Shared input-queued switch pipeline for one (tables, config), on
+    one device."""
+
+    def __init__(self, tables: SimTables, cfg: SimConfig, device=None):
+        if cfg.mode in _NOT_PORTED:
+            raise NotImplementedError(
+                f"mode={cfg.mode!r} is not ported yet: {_NOT_PORTED[cfg.mode]}")
+        if cfg.mode != "min":
+            raise ValueError(f"unknown routing mode {cfg.mode!r}")
+        if cfg.kernel_path not in KERNEL_PATHS:
+            raise ValueError(f"kernel_path {cfg.kernel_path!r} not in "
+                             f"{KERNEL_PATHS}")
+        # default: the card; raises without one unless asked for the CPU
+        self.device = dev = resolve_device(device)
+        N, P, V = tables.n_routers, tables.P, cfg.vcs
+        assert N < MAX_ROUTERS, f"router ids overflow packed records: {N}"
+        self.N, self.P, self.V = N, P, V
+        self.Qn, self.Qs = cfg.q_net, cfg.q_src
+        self.n_ep = tables.n_endpoints
+        self.p = int(tables.p)
+        self.W = cfg.lookahead
+        self.kernel_path = cfg.kernel_path
+
+        def on_dev(a, dtype):
+            return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+        # the O(N^2) tables stay int16 on the device (as in the
+        # reference); gathered values are widened to int32 where used
+        self.nbr = on_dev(tables.nbr, I32)
+        self.rev_port = on_dev(tables.rev_port, I32)
+        self.port_toward = on_dev(tables.port_toward, torch.int16)
+        self.ep_router = on_dev(tables.ep_router, I32)
+        # clamped once: dead/pad ports (-1) read router 0, port 0 and are
+        # masked by nbr >= 0 wherever they matter
+        self.nbr_c = self.nbr.clamp(min=0)
+        self.rev_c = self.rev_port.clamp(min=0)
+
+        # endpoint-router blocks: endpoints are sorted by router and
+        # each endpoint-router has exactly p endpoints
+        ebr = tables.ep_router[::self.p].astype(np.int64)
+        self.ep_block_router = on_dev(ebr, torch.int64)
+        self.n_epr = self.n_ep // self.p
+        epr_index = np.full((N,), -1, dtype=np.int32)
+        epr_index[ebr] = np.arange(self.n_epr, dtype=np.int32)
+        self.epr_index = on_dev(epr_index, I32)
+        self.epr_c = self.epr_index.clamp(min=0).long()
+        self.has_epr = self.epr_index >= 0
+
+        self.NQ = N * P * V
+        self.R = self.NQ + self.n_ep
+        self.routers_n = torch.arange(N, dtype=I32, device=dev)
+        self.sidx_net = torch.arange(self.Qn, dtype=I32, device=dev)
+        self.sidx_src = torch.arange(self.Qs, dtype=I32, device=dev)
+        self.vc_ids = torch.arange(V, dtype=I32, device=dev)
+
+    # -- queue state ---------------------------------------------------------
+    def init_queues(self) -> tuple:
+        """(nq_pkt, nq_count, sq_pkt, sq_count) zeros: shift-down FIFOs
+        (head at slot 0) of packed records, and their depths."""
+        N, P, V, Qn, Qs, dev = (self.N, self.P, self.V, self.Qn, self.Qs,
+                                self.device)
+        return (torch.zeros((N, P, V, Qn, PK), dtype=I32, device=dev),
+                torch.zeros((N, P, V), dtype=I32, device=dev),
+                torch.zeros((self.n_ep, Qs, PK), dtype=I32, device=dev),
+                torch.zeros((self.n_ep,), dtype=I32, device=dev))
+
+    def occupancy(self, nq_count):
+        """Credit view: occ[r, o] = downstream input-queue depth (BIG on
+        a dead or pad port)."""
+        occ = nq_count[self.nbr_c, self.rev_c, :].sum(-1, dtype=I32)
+        return torch.where(self.nbr >= 0, occ, BIG)
+
+    def inject(self, sq_pkt, sq_count, want, new_pkt):
+        """Masked tail enqueue into the per-endpoint source FIFOs, in
+        place.  `want` must already account for backpressure."""
+        ins = want[:, None] & (self.sidx_src == sq_count[:, None])
+        torch.where(ins[..., None], new_pkt[:, None, :], sq_pkt, out=sq_pkt)
+        sq_count += want.to(I32)
+        return sq_pkt, sq_count
+
+    # -- routing -------------------------------------------------------------
+    def route_decision(self, dst_r, occ):
+        """Per-endpoint injection-time path choice -> (inter, phase).
+        MIN needs no random draw and no occupancy: the packet heads for
+        its destination in phase 1."""
+        return dst_r, torch.ones_like(dst_r)
+
+    def _desires(self, pkt, router):
+        """Table-routed desires of window records: (out port, out VC,
+        eject).  `router` broadcasts against the records' leading dims."""
+        dst, inter, phase = pk_dst(pkt), pk_inter(pkt), pk_phase(pkt)
+        tgt = torch.where(phase == 1, dst, inter).clamp(0, self.N - 1)
+        eject = (dst == router) & (phase == 1)
+        out_port = self.port_toward[router, tgt].to(I32)
+        out_vc = pk_hops(pkt).clamp(max=self.V - 1)
+        return out_port, out_vc, eject
+
+    # -- allocation ----------------------------------------------------------
+    def alloc(self, nq_pkt, nq_count, sq_pkt, sq_count, occ, cycle: int,
+              eject_fold: Callable, eject_acc):
+        """One cycle of W-round switch allocation + compaction, in place.
+
+        `eject_fold(acc, grant_net [N,P,V] bool, grant_src [n_ep] bool,
+        pkt_net [N,P,V,PK], pkt_src [n_ep,PK], cycle)` is called ONCE
+        with every ejection grant of the cycle and the granted records
+        (the reference calls it once per round with that round's grants;
+        a queue ejects at most once per cycle, so an additive fold sees
+        the same multiset).  Returns the four queue arrays and the
+        folded accumulator.
+        """
+        N, P, V, Qn, Qs, W = (self.N, self.P, self.V, self.Qn, self.Qs,
+                              self.W)
+        PV, PE = P * V, self.p
+        n_ep, n_epr = self.n_ep, self.n_epr
+        # ---- the W-slot window: a static slice of the shift-down FIFOs
+        # (zero-padded past the buffer end).  Every read of it below is
+        # made before the in-place compaction at the end of the cycle.
+        def head_window(pkt_arr, depth):
+            win = pkt_arr[..., :min(W, depth), :]
+            if depth < W:
+                pad = torch.zeros(win.shape[:-2] + (W - depth, PK),
+                                  dtype=I32, device=self.device)
+                win = torch.cat([win, pad], dim=-2)
+            return win
+        win_net = head_window(nq_pkt, Qn)                      # [N,P,V,W,PK]
+        win_src = head_window(sq_pkt, Qs)                      # [n_ep,W,PK]
+
+        r_b = self.routers_n[:, None, None, None]               # [N,1,1,1]
+        e_b = self.ep_router[:, None]                           # [n_ep,1]
+        n_out, n_vc, n_ej = self._desires(win_net, r_b)
+        s_out, s_vc, s_ej = self._desires(win_src, e_b)
+
+        def space_of(router, out, vc):
+            o = out.clamp(0, P - 1)
+            dr = self.nbr[router, o]
+            dp = self.rev_port[router, o]
+            depth = nq_count[dr.clamp(min=0), dp.clamp(min=0), vc]
+            return (out >= 0) & (dr >= 0) & (depth < Qn)
+        n_sp = space_of(r_b, n_out, n_vc)
+        s_sp = space_of(e_b, s_out, s_vc)
+
+        # ---- router-major request arrays for the allocation kernel
+        def rm_net(x):                             # [N,P,V,W] -> [N,PV,W]
+            return x.to(I32).reshape(N, PV, W).contiguous()
+
+        def rm_src(x):                             # [n_ep,W] -> [N,PE,W]
+            g = x.to(I32).reshape(n_epr, PE, W)[self.epr_c]
+            return torch.where(self.has_epr[:, None, None], g, 0)
+
+        cnt_net = torch.where((self.nbr >= 0)[:, :, None], nq_count,
+                              0).reshape(N, PV)
+        cs_rows = sq_count.reshape(n_epr, PE)[self.epr_c]
+        cnt_src = torch.where(self.has_epr[:, None], cs_rows, 0)
+
+        chan_n, ej_n, chan_s, ej_s, win_req = alloc_rounds(
+            cycle, rm_net(n_out), rm_net(n_ej), rm_net(n_sp), cnt_net,
+            rm_src(s_out), rm_src(s_ej), rm_src(s_sp), cnt_src,
+            self.epr_index, W=W, P=P, V=V, PE=PE, p_budget=self.p,
+            NQ=self.NQ, R=self.R, kernel_path=self.kernel_path)
+        cs_net = chan_n.reshape(N, P, V)           # granted window offset
+        ej_net = ej_n.reshape(N, P, V)             # (-1 = none), by kind
+        cs_src = chan_s[self.ep_block_router].reshape(n_ep)
+        ej_src = ej_s[self.ep_block_router].reshape(n_ep)
+
+        # ---- engine-specific ejection stats over the granted records
+        rec_net = win_net.gather(
+            3, ej_net.clamp(min=0).long()[..., None, None].expand(
+                N, P, V, 1, PK)).squeeze(3)
+        rec_src = win_src.gather(
+            1, ej_src.clamp(min=0).long()[:, None, None].expand(
+                n_ep, 1, PK)).squeeze(1)
+        eject_acc = eject_fold(eject_acc, ej_net >= 0, ej_src >= 0,
+                               rec_net, rec_src, cycle)
+
+        # ---- arrivals, as a dense per-(router, port) view: each input
+        # port receives at most one packet per cycle, from its unique
+        # upstream channel, whose winning request `win_req` names it
+        u_c, uo_c = self.nbr_c, self.rev_c         # upstream router, port
+        wi = win_req[u_c, uo_c]                    # winning request id
+        valid = (self.nbr >= 0) & (wi >= 0)
+        is_net = wi < PV
+        wi_n = wi.clamp(0, PV - 1)
+        eid = (self.epr_index[u_c] * PE + (wi - PV).clamp(min=0)).clamp(
+            0, n_ep - 1)
+        slot = torch.where(is_net, chan_n[u_c, wi_n],
+                           cs_src[eid]).clamp(0, W - 1)
+        win_net_pm = win_net.reshape(N, PV, W, PK)
+        pkt = torch.where(is_net[..., None], win_net_pm[u_c, wi_n, slot],
+                          win_src[eid, slot])                  # [N,P,PK]
+        vc = torch.where(is_net, n_vc.reshape(N, PV, W)[u_c, wi_n, slot],
+                         s_vc[eid, slot])
+        here = self.routers_n[:, None]
+        w2 = bump_hops_word(pkt[..., 2], (here == pk_inter(pkt)).to(I32))
+        pkt = torch.cat([pkt[..., :2], w2[..., None]], dim=-1)
+        arrived = valid[..., None] & (self.vc_ids == vc[..., None])
+
+        # ---- dequeue + compaction, in place: removing the granted
+        # packet at offset g is a shift of slots >= g by one; then the
+        # arrival goes to the post-dequeue tail
+        g_net = torch.maximum(cs_net, ej_net)
+        g_src = torch.maximum(cs_src, ej_src)
+        deq_net = (g_net >= 0).to(I32)
+        deq_src = (g_src >= 0).to(I32)
+
+        up_net = torch.cat([nq_pkt[:, :, :, 1:],
+                            torch.zeros_like(nq_pkt[:, :, :, :1])], dim=3)
+        drop_m = (g_net[..., None] >= 0) & (self.sidx_net >= g_net[..., None])
+        torch.where(drop_m[..., None], up_net, nq_pkt, out=nq_pkt)
+        tail = (nq_count - deq_net)[..., None]             # [N,P,V,1]
+        ins = arrived[..., None] & (self.sidx_net == tail)  # [N,P,V,Qn]
+        torch.where(ins[..., None], pkt[:, :, None, None, :], nq_pkt,
+                    out=nq_pkt)
+
+        up_src = torch.cat([sq_pkt[:, 1:], torch.zeros_like(sq_pkt[:, :1])],
+                           dim=1)
+        s_drop = (g_src[:, None] >= 0) & (self.sidx_src >= g_src[:, None])
+        torch.where(s_drop[..., None], up_src, sq_pkt, out=sq_pkt)
+
+        nq_count += arrived.to(I32) - deq_net
+        sq_count -= deq_src
+        return nq_pkt, nq_count, sq_pkt, sq_count, eject_acc
+

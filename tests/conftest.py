@@ -9,3 +9,9 @@ from repro.core import build_slimfly
 @functools.lru_cache(maxsize=None)
 def cached_slimfly(q: int, p=None):
     return build_slimfly(q) if p is None else build_slimfly(q, p=p)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one "
+        "(run with `pytest -m cuda` on the card)")

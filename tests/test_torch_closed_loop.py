@@ -1,0 +1,156 @@
+"""The port's closed-loop MIN engine (`repro_torch.sim.workloads.
+run_workload`, on the CPU through the kernels' plain versions) held
+EXACTLY equal to the LIVE reference run (`repro.sim.workloads.
+run_workload`, kernel_path="ref") field by field; the two pinned
+single-job goldens of tests/test_jobs.py; and the port's isolation
+from jax and from the reference package."""
+
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import build_slimfly as jax_build_slimfly
+from repro.sim import SimTables as JaxSimTables
+from repro.sim.workloads import WorkloadSimConfig as JaxCfg
+from repro.sim.workloads import run_workload as jax_run_workload
+import repro_torch.core as tc
+from repro_torch.sim import SimTables
+from repro_torch.sim.workloads import (WorkloadSimConfig, ring_all_reduce,
+                                       run_workload, stencil)
+
+FIELDS_EQ = ("name", "mode", "placement", "n_ranks", "n_messages",
+             "completed", "makespan", "cycles_run", "flits_injected",
+             "flits_delivered")
+ARRAYS_EQ = ("msg_size", "msg_phase", "msg_sent", "msg_delivered",
+             "msg_start", "msg_done", "per_cycle_delivered", "ep_of_rank")
+
+
+def _assert_results_equal(port, ref):
+    for f in FIELDS_EQ:
+        assert getattr(port, f) == getattr(ref, f), f
+    for f in ARRAYS_EQ:
+        np.testing.assert_array_equal(getattr(port, f), getattr(ref, f),
+                                      err_msg=f)
+
+
+_CACHE = {}
+
+
+def _tables(q):
+    if q not in _CACHE:
+        _CACHE[q] = (JaxSimTables.build(jax_build_slimfly(q)),
+                     SimTables.build(tc.build_slimfly(q), device="cpu"))
+    return _CACHE[q]
+
+
+PARITY_CASES = [
+    # (q, workload, cfg kwargs)
+    (5, lambda: ring_all_reduce(16, 8),
+     dict(placement="linear", chunk=128)),
+    (5, lambda: stencil((4, 4), 8, iters=2),
+     dict(placement="blocked", chunk=100, seed=1)),
+    (7, lambda: stencil((3, 4, 5), 6, iters=2),
+     dict(placement="linear", chunk=64)),
+]
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The tier-1 run puts six workers on the machine; tiny per-cycle ops
+    gain nothing from torch's intra-op threads there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("case", range(len(PARITY_CASES)))
+def test_run_workload_matches_live_reference(case):
+    q, wl_fn, kw = PARITY_CASES[case]
+    jt, tt = _tables(q)
+    ref = jax_run_workload(jt, wl_fn(), JaxCfg(mode="min", kernel_path="ref",
+                                               **kw))
+    port = run_workload(tt, wl_fn(), WorkloadSimConfig(mode="min", **kw),
+                        device="cpu")
+    assert ref.completed
+    _assert_results_equal(port, ref)
+    if case == 0:
+        # fed the reference's own table arrays, the port runs the same
+        from_ref = SimTables.from_numpy(
+            tt.topo, **{f: getattr(jt, f) for f in SimTables.FIELDS})
+        again = run_workload(from_ref, wl_fn(),
+                             WorkloadSimConfig(mode="min", **kw),
+                             device="cpu")
+        _assert_results_equal(again, ref)
+
+
+# the two MIN goldens of tests/test_jobs.py::_GOLDEN (cases 0 and 2)
+GOLDEN = [
+    (lambda: ring_all_reduce(16, 8),
+     dict(placement="linear", chunk=128, seed=0), 250.0, 3840, 61845, 57855),
+    (lambda: stencil((4, 4), 8, iters=2),
+     dict(placement="blocked", chunk=100, seed=1), 98.0, 1024, 6646, 4332),
+]
+
+
+@pytest.mark.parametrize("case", range(len(GOLDEN)))
+def test_golden_single_job_outcomes(case):
+    wl_fn, kw, makespan, flits, done_sum, start_sum = GOLDEN[case]
+    _, tt = _tables(5)
+    r = run_workload(tt, wl_fn(), WorkloadSimConfig(mode="min", **kw),
+                     device="cpu")
+    assert r.completed
+    assert r.makespan == makespan
+    assert r.cycles_run == int(makespan)
+    assert r.flits_delivered == flits == r.flits_injected
+    assert int(r.msg_done.sum()) == done_sum
+    assert int(r.msg_start.sum()) == start_sum
+
+
+def test_port_imports_neither_jax_nor_reference():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            repro_torch.__path__, "repro_torch.")]
+        for n in names:
+            importlib.import_module(n)
+        assert len(names) >= 15, names
+        bad = [m for m in sys.modules
+               if m == "jax" or m.startswith("jax.")
+               or m == "repro" or m.startswith("repro.")]
+        assert not bad, bad
+        print("ok", len(names))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    """With no CUDA device and no device asked for, every entry point
+    raises; none falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    topo = tc.build_slimfly(5)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tc.build_routing(topo)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SimTables.build(topo)
+    _, tt = _tables(5)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_workload(tt, ring_all_reduce(4, 2))
+
+
+@pytest.mark.parametrize("kw", [dict(mode="ugal_l"), dict(mode="val"),
+                                dict(mode="ecmp"), dict(routing="source"),
+                                dict(telemetry=True)])
+def test_unported_options_raise(kw):
+    _, tt = _tables(5)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        run_workload(tt, ring_all_reduce(4, 2), WorkloadSimConfig(**kw),
+                     device="cpu")

@@ -1,0 +1,98 @@
+"""The port's kernels: each plain PyTorch version (what runs on the
+CPU) held EXACTLY equal to the reference's Pallas kernel (interpret
+mode, as the reference's own tests run it) and jnp oracle.  The CUDA
+kernels are held against these plain versions on the card by
+tests/test_torch_cuda.py.  Distances are small integers and the allocation is
+int32 throughout, so every comparison is exact."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.core import build_slimfly as jax_build_slimfly
+from repro.kernels import apsp as jax_apsp
+from repro.kernels.alloc import alloc_rounds_pallas
+from repro.kernels.minplus import minplus_pallas
+from repro.kernels.ref import alloc_rounds_ref as jax_alloc_rounds_ref
+from repro.kernels.ref import minplus_ref as jax_minplus_ref
+from repro_torch.kernels import apsp, launch_counts, reset_launch_counts
+from repro_torch.kernels.alloc import alloc_rounds, alloc_rounds_ref
+from repro_torch.kernels.minplus import minplus, minplus_ref
+from test_torch_cuda import (ALLOC_CASES, BIG, MINPLUS_SHAPES,
+                             _alloc_inputs, _minplus_inputs)
+
+def _sentinel(x):
+    """Map every value >= 1e37 to one sentinel (the jnp oracle does not
+    saturate: 3e38 + 3e38 = inf there)."""
+    x = np.asarray(x, dtype=np.float32).copy()
+    x[x >= 1e37] = BIG
+    return x
+
+
+@pytest.mark.parametrize("shape", MINPLUS_SHAPES)
+def test_minplus_plain_matches_pallas(shape):
+    a, b = _minplus_inputs(shape, seed=sum(shape))
+    want = np.asarray(minplus_pallas(jnp.asarray(a), jnp.asarray(b)))
+    got = minplus_ref(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    np.testing.assert_array_equal(got, want)
+    jref = np.asarray(jax_minplus_ref(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_array_equal(got, _sentinel(jref))
+    # the dispatcher takes the plain version for CPU tensors
+    np.testing.assert_array_equal(
+        minplus(torch.from_numpy(a), torch.from_numpy(b)).numpy(), want)
+
+
+def test_minplus_plain_unbatched_and_chunked(monkeypatch):
+    """2-D inputs, and a chunk size that splits k into ragged pieces."""
+    import repro_torch.kernels.ref as ref
+    a, b = _minplus_inputs((1, 40, 77, 33), seed=5)
+    want = np.asarray(minplus_pallas(jnp.asarray(a[0]), jnp.asarray(b[0])))
+    monkeypatch.setattr(ref, "_MINPLUS_CHUNK_ELEMS", 40 * 33 * 6)
+    got = minplus_ref(torch.from_numpy(a[0]), torch.from_numpy(b[0]))
+    assert got.shape == (40, 33)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_apsp_slimfly_q5_matches_pallas():
+    topo = jax_build_slimfly(5)
+    want = np.asarray(jax_apsp(topo.adj, use_pallas=True))
+    got = apsp(topo.adj, device="cpu").numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got.max() == 2.0
+
+
+@pytest.mark.parametrize("seed,cycle", ALLOC_CASES)
+def test_alloc_plain_matches_pallas_and_ref(seed, cycle):
+    cycle, arrs, kw = _alloc_inputs(seed, cycle=cycle)
+    j = {k: jnp.asarray(v) for k, v in arrs.items()}
+    want_p = alloc_rounds_pallas(jnp.int32(cycle), *j.values(), **kw)
+    want_r = jax_alloc_rounds_ref(jnp.int32(cycle), **j, **kw)
+    got = alloc_rounds_ref(cycle, *(torch.from_numpy(v) for v in arrs.values()),
+                           **kw)
+    got_auto = alloc_rounds(cycle, *(torch.from_numpy(v)
+                                     for v in arrs.values()), **kw)
+    for g, ga, wp, wr in zip(got, got_auto, want_p, want_r):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(wp))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(wr))
+        np.testing.assert_array_equal(ga.numpy(), np.asarray(wp))
+    # some grants of every kind happen, so the comparison has teeth
+    assert (got[0] >= 0).any() and (got[1] >= 0).any()
+    assert (got[4] >= 0).any()
+
+
+def test_cpu_tensor_never_launches_a_kernel():
+    reset_launch_counts()
+    a, b = _minplus_inputs((1, 9, 9, 9), seed=1)
+    minplus(torch.from_numpy(a), torch.from_numpy(b))
+    cycle, arrs, kw = _alloc_inputs(4)
+    alloc_rounds(cycle, *(torch.from_numpy(v) for v in arrs.values()), **kw)
+    assert launch_counts() == {"minplus": 0, "alloc_rounds": 0}
+    # forcing the kernel on a CPU tensor raises; it never falls back
+    with pytest.raises(ValueError):
+        minplus(torch.from_numpy(a), torch.from_numpy(b), kernel_path="cuda")
+    with pytest.raises(ValueError):
+        alloc_rounds(cycle, *(torch.from_numpy(v) for v in arrs.values()),
+                     **kw, kernel_path="cuda")

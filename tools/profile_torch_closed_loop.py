@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Where the time of the port's closed loop goes, on one NVIDIA GPU.
+
+    python3 tools/profile_torch_closed_loop.py [--q 19] [--cycles 256]
+
+Builds the Slim Fly MMS fabric of `--q` and the 3-D stencil that fills
+it (q=19: (20, 20, 27), 8-flit halos, 2 iterations), runs the first
+`--cycles` cycles of `repro_torch.sim.workloads.run_workload` once to
+warm up, then again under `torch.profiler` (CPU and CUDA activities),
+and prints one JSON line: wall time per cycle, device busy time per
+cycle (sum of kernel times) and the device's idle share, kernel
+launches per cycle, and the kernels with the most device time.  Needs a
+CUDA device.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "..", "src"))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--q", type=int, default=19)
+    ap.add_argument("--cycles", type=int, default=256)
+    args = ap.parse_args()
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.core import build_slimfly
+    from repro_torch.sim import SimTables
+    from repro_torch.sim.workloads import WorkloadSimConfig, run_workload, stencil
+
+    dims = {19: (20, 20, 27), 7: (6, 7, 14), 5: (5, 5, 10)}[args.q]
+    tables = SimTables.build(build_slimfly(args.q))
+    wl = stencil(dims, 8, iters=2)
+    cfg = WorkloadSimConfig(chunk=args.cycles, max_cycles=args.cycles)
+    run_workload(tables, wl, cfg)                    # warm-up (kernel build)
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    run_workload(tables, wl, cfg)
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_workload(tables, wl, cfg)
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+
+    rows = []
+    busy_us = 0.0
+    launches = 0
+    under_ops_us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                       if ev.device_type == DeviceType.CPU)
+    for ev in prof.key_averages():
+        # device-side rows only (kernels, memcpy, memset): the host-side
+        # operator rows carry the same device time again
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = ev.self_device_time_total
+        if dev_us <= 0:
+            continue
+        busy_us += dev_us
+        launches += ev.count
+        rows.append((dev_us, ev.count, ev.key))
+    rows.sort(reverse=True)
+    n = args.cycles
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(json.dumps({
+        "card": smi, "q": args.q, "ranks": wl.n_ranks, "cycles": n,
+        "wall_ms_per_cycle": 1e3 * wall_plain / n,
+        "wall_ms_per_cycle_profiled": 1e3 * wall_prof / n,
+        "device_busy_ms_per_cycle": busy_us / 1e3 / n,
+        "device_idle_share": 1.0 - (busy_us / 1e6) / wall_prof,
+        "device_ms_per_cycle_under_host_ops": under_ops_us / 1e3 / n,
+        "device_ops_per_cycle": launches / n,
+        "top": [{"name": k[:80], "calls_per_cycle": c / n,
+                 "device_us_per_cycle": d / n,
+                 "share_of_busy": d / busy_us}
+                for d, c, k in rows[:15]],
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
