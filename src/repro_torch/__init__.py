@@ -6,7 +6,7 @@ of `repro`: numpy-only modules of the reference are kept here as
 copies.
 
 Entry points (`core.routing.build_routing`, `sim.tables.SimTables.build`,
-`sim.workloads.run_workload`) run on the card: their `device` argument
+`sim.simulate`, `sim.workloads.run_workload`) run on the card: their `device` argument
 defaults to ``"cuda"``, and without a CUDA device they raise unless the
 caller passes ``device="cpu"`` explicitly.  There is no silent fallback.
 """

@@ -4,21 +4,24 @@
 The distance matrix comes from (min,+) APSP on the device (the CUDA
 kernel in `repro_torch.kernels.minplus` on the card); the next-hop
 table is derived from it on the host in numpy, as in the reference.
-Failure masks, equal-cost sets, the channel-dependency-graph deadlock
-check, channel loads and the routed resiliency metrics are not part of
-this slice of the port (ROADMAP Queue 1 #3 and #10).
+Under a link-failure mask the tables are computed on the masked
+adjacency: routes re-converge around dead links, and pairs the mask
+disconnects get ``dist = UNREACH`` and ``next_hop = -1``.  Equal-cost
+sets, the channel-dependency-graph deadlock check, channel loads and
+the routed resiliency metrics are not part of the port yet (ROADMAP
+Queue 1 #3 and #10).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
 from .. import resolve_device
 from ..kernels import apsp
-from .topology import Topology
+from .topology import Topology, masked_adjacency, normalize_failed_edges
 
 __all__ = ["UNREACH", "RoutingTables", "build_routing"]
 
@@ -32,7 +35,13 @@ class RoutingTables:
     topo: Topology
     dist: np.ndarray             # [N_r, N_r] int16 hops (UNREACH = cut off)
     next_hop: np.ndarray         # [N_r, N_r] int32 deterministic MIN next hop
-    adj: np.ndarray              # adjacency the tables were computed on
+    adj: np.ndarray              # live adjacency the tables were computed on
+    failed_edges: Optional[np.ndarray] = None   # [K, 2] mask, or None
+
+    @property
+    def reachable(self) -> np.ndarray:
+        """[N_r, N_r] bool: pairs with a surviving route."""
+        return self.dist < UNREACH
 
     def min_path(self, s: int, d: int) -> List[int]:
         """Deterministic minimal path (router sequence, inclusive)."""
@@ -46,9 +55,11 @@ class RoutingTables:
         return path
 
 
-def build_routing(topo: Topology, device=None,
-                  kernel_path: str = "auto") -> RoutingTables:
-    """Distance and MIN next-hop tables of a healthy fabric.
+def build_routing(topo: Topology, device=None, kernel_path: str = "auto",
+                  failed_edges=None) -> RoutingTables:
+    """Distance and MIN next-hop tables, of the healthy fabric or, with
+    `failed_edges` ([K, 2] router pairs or a bool mask over
+    `topo.edge_list()`), of the fabric with those links removed.
 
     APSP runs on `device` (default ``cuda``; raises without a card
     unless ``device="cpu"`` is asked for), through the (min,+) kernel
@@ -56,23 +67,35 @@ def build_routing(topo: Topology, device=None,
     at 3e38 like the reference's Pallas path; the reference's
     `SimTables.build` takes its unsaturated jnp path instead
     (src/repro/sim/tables.py:134), but every distance below 1e37 is the
-    same either way, and only those reach the tables."""
+    same either way, and only those reach the tables.  Under a
+    non-empty mask the squarings run up to a diameter of N, since
+    failures can stretch paths beyond the healthy diameter."""
     dev = resolve_device(device)
     n = topo.n_routers
     adj = topo.adj
+    if failed_edges is not None:
+        failed_edges = normalize_failed_edges(failed_edges, topo)
+        adj = masked_adjacency(adj, failed_edges)
     max_d = topo.params.get("diameter_hint", min(n, 64))
+    if failed_edges is not None and len(failed_edges):
+        max_d = n
     d = apsp(adj, device=dev, max_diameter=max_d,
              kernel_path=kernel_path).cpu().numpy()
-    assert (d < 1e37).all(), "disconnected topology"
-    dist = d.astype(np.int16)
+    if failed_edges is None:
+        assert (d < 1e37).all(), "disconnected topology"
+    dist = np.where(d < 1e37, d, float(UNREACH)).astype(np.int16)
 
     # next_hop[r, t] = lowest-index neighbor n of r with dist[n,t] = dist[r,t]-1
     next_hop = np.full((n, n), -1, dtype=np.int32)
     for r in range(n):
         nbrs = np.nonzero(adj[r])[0]                      # [deg]
+        if len(nbrs) == 0:                 # router fully cut off by the mask
+            next_hop[r, r] = r
+            continue
         good = dist[nbrs, :] == (dist[r, :][None, :] - 1)  # [deg, n]
         first = np.argmax(good, axis=0)                   # lowest index
         has = good.any(axis=0)
         next_hop[r, has] = nbrs[first[has]]
         next_hop[r, r] = r
-    return RoutingTables(topo=topo, dist=dist, next_hop=next_hop, adj=adj)
+    return RoutingTables(topo=topo, dist=dist, next_hop=next_hop, adj=adj,
+                         failed_edges=failed_edges)

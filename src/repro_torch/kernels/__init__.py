@@ -5,6 +5,8 @@ version and a launch count.
            (replaces `repro.kernels.minplus.minplus_pallas`)
 - alloc:   W-round switch allocation of the flit engine
            (replaces `repro.kernels.alloc.alloc_rounds_pallas`)
+- ugal:    UGAL/VAL candidate selection at injection
+           (replaces `repro.kernels.alloc.ugal_select_pallas`)
 - ops:     seeded distances and APSP; ref: the plain versions.
 Sources are under csrc/; `_cuda` builds them with nvcc on first use.
 """
@@ -12,12 +14,14 @@ Sources are under csrc/; `_cuda` builds them with nvcc on first use.
 from .alloc import alloc_rounds, alloc_rounds_cuda
 from .minplus import minplus_cuda
 from .ops import apsp, minplus, seed_distance
+from .ugal import ugal_select, ugal_select_cuda
 
 __all__ = ["KERNELS", "alloc_rounds", "apsp", "launch_counts",
-           "minplus", "reset_launch_counts", "seed_distance"]
+           "minplus", "reset_launch_counts", "seed_distance", "ugal_select"]
 
 # kernel name -> its wrapper, which counts its own launches
-KERNELS = {"minplus": minplus_cuda, "alloc_rounds": alloc_rounds_cuda}
+KERNELS = {"minplus": minplus_cuda, "alloc_rounds": alloc_rounds_cuda,
+           "ugal_select": ugal_select_cuda}
 
 
 def launch_counts() -> dict:

@@ -15,13 +15,17 @@ oracles in `repro.kernels.ref` with two deliberate differences:
   (``use_gather=True``), with the per-channel minimum taken by a
   scatter-min over a [B, P+1] buffer instead of a dense [B, P, K] mask.
   Both give the same winners: priorities are distinct.
+- `ugal_select_ref` computes UGAL-L's ``len * occ`` in int64 and wraps
+  it to int32 explicitly, which is the two's-complement wrap that jnp's
+  int32 multiply gives (torch leaves int32 overflow to C++).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["BIG_F", "KSHIFT", "minplus_ref", "alloc_rounds_ref"]
+__all__ = ["BIG_F", "KSHIFT", "minplus_ref", "alloc_rounds_ref",
+           "ugal_select_ref"]
 
 BIG_F = 3.0e38   # +inf stand-in of the distance matrices (inf-free sums)
 
@@ -171,3 +175,36 @@ def alloc_rounds_ref(cycle: int, out_n, ej_n, sp_n, cnt_n,
         es_s = torch.where(g_ej_s, w, es_s)
 
     return cs_n, es_n, cs_s, es_s, win_req
+
+
+def ugal_select_ref(len_min, len_val, occ_min, occ_val,
+                    *, ugal_g: bool, unreach: int, big: int):
+    """Score MIN against C Valiant candidates; pick the first minimum.
+
+    Same contract as `repro.kernels.ref.ugal_select_ref` (int32):
+      len_min, occ_min: [E]     MIN path length and occupancy term
+      len_val, occ_val: [E, C]  the candidates' (lengths >= unreach: dead)
+    UGAL-L scores len * occ (int32, wrapping), UGAL-G scores occ + len;
+    a dead path scores `big`.  Returns best [E] int32: the index into
+    [MIN, cand_0, .., cand_{C-1}] of the first minimum score, so ties go
+    to MIN.
+    """
+    lm, om = len_min[:, None], occ_min[:, None]
+    if ugal_g:
+        sm, sv = om + lm, occ_val + len_val
+    else:
+        sm, sv = _mul_wrap32(lm, om), _mul_wrap32(len_val, occ_val)
+    sm = torch.where(lm < unreach, sm, big)
+    sv = torch.where(len_val < unreach, sv, big)
+    scores = torch.cat([sm, sv], dim=1)                  # [E, 1 + C]
+    m = scores.amin(dim=1, keepdim=True)
+    idx = torch.arange(scores.shape[1], dtype=torch.int32,
+                       device=scores.device)
+    first = torch.where(scores == m, idx, scores.shape[1]).amin(dim=1)
+    return first.to(torch.int32)
+
+
+def _mul_wrap32(a, b):
+    """int32 a * b with two's-complement wrap, as jnp computes it."""
+    prod = (a.to(torch.int64) * b.to(torch.int64)) & 0xFFFFFFFF
+    return torch.where(prod >= 1 << 31, prod - (1 << 32), prod).to(torch.int32)

@@ -3,11 +3,18 @@
 
 - packed:    3-word bit-packed flit records
 - tables:    topology -> dense routing/port tables (host numpy)
-- engine:    `SwitchCore`, the input-queued router model on the device
+- random:    the random source, named by cycle and stream
+- traffic:   the §V traffic patterns
+- engine:    `SwitchCore`, the input-queued router model on the device,
+             and the open-loop engine `simulate`
 - workloads: the closed-loop message-DAG engine (`run_workload`)
 """
 
-from .engine import SimConfig, SwitchCore
+from .engine import SimConfig, SimResult, SwitchCore, simulate
+from .random import Draw, ReplaySource, TorchSource
 from .tables import SimTables
+from .traffic import PATTERNS, Traffic, make_traffic
 
-__all__ = ["SimConfig", "SwitchCore", "SimTables"]
+__all__ = ["SimConfig", "SimResult", "SwitchCore", "simulate", "SimTables",
+           "Draw", "ReplaySource", "TorchSource", "PATTERNS", "Traffic",
+           "make_traffic"]

@@ -1,31 +1,36 @@
-"""Input-queued flit switch (paper §V), ported from `repro.sim.engine`.
+"""Input-queued flit switch and the open-loop engine (paper §V), ported
+from `repro.sim.engine`.
 
 `SwitchCore` holds one fabric's tables on a device and runs the parts
 of a cycle that every engine shares: the credit view (`occupancy`),
-per-flit route choice (`route_decision`), tail enqueue into the source
-queues (`inject`), and `alloc`: one W-slot window of every queue, route
-desires for all W slots at once, W rounds of rotating-priority
-allocation (the CUDA kernel `repro_torch.kernels.alloc` on the card),
-then arrivals and shift-down compaction.  The model and the two
-identities that make the single-window gather exact are those of the
-reference (module docstring of `repro.sim.engine`).
+per-flit route choice (`route_decision`: MIN, VAL, UGAL-L, UGAL-G; the
+UGAL score through the CUDA kernel `repro_torch.kernels.ugal` on the
+card), tail enqueue into the source queues (`inject`), and `alloc`: one
+W-slot window of every queue, route desires for all W slots at once, W
+rounds of rotating-priority allocation (the CUDA kernel
+`repro_torch.kernels.alloc` on the card), then arrivals and shift-down
+compaction.  The model and the two identities that make the
+single-window gather exact are those of the reference (module docstring
+of `repro.sim.engine`).  `simulate` is the open-loop Bernoulli engine of
+the paper's latency/throughput curves (Fig 6).
 
 The reference is a pure function whose scan carry is donated; here the
 queue arrays are updated IN PLACE (`inject` and `alloc` write into the
 tensors they are given and return them), which saves a copy of the
-16 MB network queue array per cycle at q=19.
+16 MB network queue array per cycle at q=19.  Random draws come from a
+source named by cycle and stream (`repro_torch.sim.random`), not from a
+split PRNG key.
 
-This slice ports table-routed MIN on a healthy fabric without
-telemetry.  VAL/UGAL need the random source of ROADMAP Queue 1 #6 (and
-the `ugal_select` kernel); ECMP comes with the failure-aware tables of
-the same item; source routing with Queue 1 #8; telemetry with #9.  The
-open-loop `simulate` is Queue 1 #6.
+Not ported yet: ECMP (ROADMAP Queue 1 #4), source routing (#8),
+telemetry (#9), the lane axis (#7).
 
 Indexing.  jnp clamps an out-of-range gather index and wraps a negative
-one; torch raises on the CPU and asserts on the card.  Every index below
-is clamped visibly; garbage records in zero-filled or stale queue slots
-(valid records or zeros) index row 0 harmlessly, and are never granted
-because the allocation masks requests by the cycle-start queue depth.
+one; torch raises on an index past the end and wraps a negative one.
+Every index below is clamped visibly -- garbage records in zero-filled
+or stale queue slots (valid records or zeros) index row 0 harmlessly,
+and are never granted because the allocation masks requests by the
+cycle-start queue depth -- except one read in UGAL-G's path occupancy,
+which reproduces the reference's wrap of a -1 router (see `path_occ`).
 """
 
 from __future__ import annotations
@@ -37,42 +42,76 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..kernels import alloc_rounds
+from ..core.routing import UNREACH
+from ..kernels import alloc_rounds, ugal_select
 from ..kernels._cuda import KERNEL_PATHS
-from .packed import (MAX_ROUTERS, PK, bump_hops_word, pk_dst, pk_hops,
-                     pk_inter, pk_phase)
+from .packed import (MAX_ROUTERS, PK, bump_hops_word, pack_record, pk_dst,
+                     pk_hops, pk_inter, pk_phase, pk_time)
+from .random import TorchSource
 from .tables import SimTables
+from .traffic import Traffic
 
-__all__ = ["BIG", "OCC_CAP", "SimConfig", "SwitchCore"]
+__all__ = ["BIG", "OCC_CAP", "MODES", "SimConfig", "SimResult", "SwitchCore",
+           "simulate"]
 
 BIG = 1 << 30
-# occupancy values entering UGAL scores are clamped here (kept for the
-# UGAL slice, ROADMAP Queue 1 #6)
+# occupancy values entering UGAL scores are clamped here so that the
+# dead-port sentinel (occupancy() returns BIG for nbr < 0) cannot
+# overflow int32 when multiplied by a path length, while still dwarfing
+# any real queue depth
 OCC_CAP = 1 << 20
+MODES = ("min", "val", "ugal_l", "ugal_g")
 
 I32 = torch.int32
 
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
-    """The switch's configuration.  The open-loop fields of the
-    reference's SimConfig (injection rate, cycles, warmup, seed, VAL
-    candidates) come with `simulate` and UGAL (ROADMAP Queue 1 #6)."""
+    """The switch's and the open loop's configuration, with the
+    reference's defaults."""
+    injection_rate: float = 0.2       # packets / endpoint / cycle
+    cycles: int = 2000
+    warmup: int = 500
     vcs: int = 4
     q_net: int = 16                   # per-(port, VC) buffer
     q_src: int = 64
-    mode: str = "min"                 # only "min" in this slice
+    mode: str = "min"                 # min | val | ugal_l | ugal_g
+    n_val_candidates: int = 4         # §IV-C: 4 works best
     lookahead: int = 4                # allocation window W
+    seed: int = 0
     # auto = the CUDA kernels for tensors on the card, their plain
     # versions on the CPU; ref / cuda force one (tests, chip_smoke.py)
     kernel_path: str = "auto"
+    telemetry: bool = False           # True: ROADMAP Queue 1 #9
+
+
+@dataclasses.dataclass
+class SimResult:
+    name: str
+    offered_load: float
+    accepted_load: float              # delivered / cycle / active endpoint
+    avg_latency: float                # cycles, measurement window
+    delivered: int
+    injected: int
+    dropped_at_source: int
+    src_occupancy: float              # mean source-queue depth (saturation)
+    per_cycle_delivered: np.ndarray
+    # end-of-cycle snapshots for the flit-conservation invariant:
+    # cumsum(injected) == cumsum(delivered) + in_flight at EVERY cycle
+    # prefix; dropped packets never enter the network
+    per_cycle_injected: np.ndarray
+    per_cycle_in_flight: np.ndarray
+    per_cycle_dropped: np.ndarray
+    q_src: int = 64
+
+    @property
+    def saturated(self) -> bool:
+        return (self.src_occupancy > 0.5 * self.q_src
+                or self.dropped_at_source > 0)
 
 
 _NOT_PORTED = {
-    "val": "ROADMAP Queue 1 #6 (random source, VAL/UGAL)",
-    "ugal_l": "ROADMAP Queue 1 #6 (random source, VAL/UGAL, ugal_select)",
-    "ugal_g": "ROADMAP Queue 1 #6 (random source, VAL/UGAL, ugal_select)",
-    "ecmp": "ROADMAP Queue 1 #6 (ECMP dead-port fallback)",
+    "ecmp": "ROADMAP Queue 1 #4 (ECMP sets and the dead-port fallback)",
 }
 
 
@@ -92,7 +131,7 @@ class SwitchCore:
         if cfg.mode in _NOT_PORTED:
             raise NotImplementedError(
                 f"mode={cfg.mode!r} is not ported yet: {_NOT_PORTED[cfg.mode]}")
-        if cfg.mode != "min":
+        if cfg.mode not in MODES:
             raise ValueError(f"unknown routing mode {cfg.mode!r}")
         if cfg.kernel_path not in KERNEL_PATHS:
             raise ValueError(f"kernel_path {cfg.kernel_path!r} not in "
@@ -106,6 +145,8 @@ class SwitchCore:
         self.n_ep = tables.n_endpoints
         self.p = int(tables.p)
         self.W = cfg.lookahead
+        self.mode = cfg.mode
+        self.C = cfg.n_val_candidates
         self.kernel_path = cfg.kernel_path
 
         def on_dev(a, dtype):
@@ -116,6 +157,7 @@ class SwitchCore:
         self.nbr = on_dev(tables.nbr, I32)
         self.rev_port = on_dev(tables.rev_port, I32)
         self.port_toward = on_dev(tables.port_toward, torch.int16)
+        self.dist = on_dev(tables.dist, torch.int16)
         self.ep_router = on_dev(tables.ep_router, I32)
         # clamped once: dead/pad ports (-1) read router 0, port 0 and are
         # masked by nbr >= 0 wherever they matter
@@ -166,11 +208,74 @@ class SwitchCore:
         return sq_pkt, sq_count
 
     # -- routing -------------------------------------------------------------
-    def route_decision(self, dst_r, occ):
+    def _dist32(self, s, t):
+        # int16 + int16 stays int16 in torch, and a cut pair's
+        # UNREACH + UNREACH = 2^15 would wrap: widen before adding
+        return self.dist[s, t].to(I32)
+
+    def route_decision(self, dst_r, occ, source=None):
         """Per-endpoint injection-time path choice -> (inter, phase).
-        MIN needs no random draw and no occupancy: the packet heads for
-        its destination in phase 1."""
-        return dst_r, torch.ones_like(dst_r)
+
+        MIN draws nothing: the packet heads for its destination in phase
+        1.  VAL draws one intermediate per endpoint, UGAL C candidates,
+        from `source`'s ``route`` stream (`repro_torch.sim.random`)."""
+        mode, C, N, n_ep = self.mode, self.C, self.N, self.n_ep
+        src_r = self.ep_router
+        if mode == "min":
+            return dst_r, torch.ones_like(dst_r)
+        if mode == "val":
+            i = source.randint("route", (n_ep,), 0, N)
+            for bump in (1, 1):
+                bad = (i == src_r) | (i == dst_r)
+                i = torch.where(bad, (i + bump) % N, i)
+            # degraded fabrics: only detour via intermediates that can
+            # still reach both endpoints; dead draws fall back to MIN
+            live = (self._dist32(src_r, i)
+                    + self._dist32(i, dst_r)) < int(UNREACH)
+            return torch.where(live, i, dst_r), (~live).to(I32)
+
+        # UGAL: score MIN against C random VAL candidates (live ones only)
+        cands = source.randint("route", (n_ep, C), 0, N)
+        for bump in (1, 2):
+            bad = (cands == src_r[:, None]) | (cands == dst_r[:, None])
+            cands = torch.where(bad, (cands + bump) % N, cands)
+        port_toward, nbr = self.port_toward, self.nbr
+
+        def first_occ(s, t):
+            o = port_toward[s, t].to(I32)
+            return torch.where(o >= 0,
+                               occ[s, o.clamp(min=0)].clamp(max=OCC_CAP), 0)
+
+        def path_occ(s, t):
+            """Occupancy sum along the MIN path (D <= 2 fast form)."""
+            o1 = port_toward[s, t].to(I32)
+            m = nbr[s, o1.clamp(min=0)]
+            # Stale tables (with_failures(rebuild=False)) can route through
+            # a dead port, where m = -1.  The reference then reads row
+            # N - 1 (jnp wraps a negative index); so does the port, by
+            # the same wrap written out.
+            m = torch.where(m < 0, m + N, m)
+            two = self._dist32(s, t) >= 2
+            second = torch.where(two, first_occ(m, t), 0)
+            return first_occ(s, t) + second
+
+        len_min = self._dist32(src_r, dst_r)                      # [n_ep]
+        len_val = (self._dist32(src_r[:, None], cands)
+                   + self._dist32(cands, dst_r[:, None]))         # [n_ep, C]
+        if mode == "ugal_l":
+            occ_min = first_occ(src_r, dst_r)
+            occ_val = first_occ(src_r[:, None], cands)
+        else:  # ugal_g: smallest sum of queues along the whole path
+            occ_min = path_occ(src_r, dst_r)
+            occ_val = (path_occ(src_r[:, None], cands)
+                       + path_occ(cands, dst_r[:, None]))
+        best = ugal_select(len_min, len_val, occ_min, occ_val,
+                           ugal_g=(mode == "ugal_g"), unreach=int(UNREACH),
+                           big=BIG, kernel_path=self.kernel_path)
+        inters = torch.cat([dst_r[:, None], cands], dim=1)
+        inter = inters.gather(1, best[:, None].long())[:, 0]
+        phase = (best == 0).to(I32)                               # MIN: phase 1
+        return inter, phase
 
     def _desires(self, pkt, router):
         """Table-routed desires of window records: (out port, out VC,
@@ -187,12 +292,15 @@ class SwitchCore:
               eject_fold: Callable, eject_acc):
         """One cycle of W-round switch allocation + compaction, in place.
 
-        `eject_fold(acc, grant_net [N,P,V] bool, grant_src [n_ep] bool,
+        `eject_fold(acc, ej_net [N,P,V] int32, ej_src [n_ep] int32,
         pkt_net [N,P,V,PK], pkt_src [n_ep,PK], cycle)` is called ONCE
-        with every ejection grant of the cycle and the granted records
-        (the reference calls it once per round with that round's grants;
-        a queue ejects at most once per cycle, so an additive fold sees
-        the same multiset).  Returns the four queue arrays and the
+        with the window offset of every queue's ejection grant (-1 =
+        none) and the granted records.  The reference calls its fold
+        once per offset with that offset's grants; a queue ejects at
+        most once per cycle, so a fold that is exact in any order (an
+        integer sum) may ignore the offsets, and one that is not (the
+        open loop's float32 latency sum) keeps them apart and adds in
+        the reference's order.  Returns the four queue arrays and the
         folded accumulator.
         """
         N, P, V, Qn, Qs, W = (self.N, self.P, self.V, self.Qn, self.Qs,
@@ -256,8 +364,8 @@ class SwitchCore:
         rec_src = win_src.gather(
             1, ej_src.clamp(min=0).long()[:, None, None].expand(
                 n_ep, 1, PK)).squeeze(1)
-        eject_acc = eject_fold(eject_acc, ej_net >= 0, ej_src >= 0,
-                               rec_net, rec_src, cycle)
+        eject_acc = eject_fold(eject_acc, ej_net, ej_src, rec_net, rec_src,
+                               cycle)
 
         # ---- arrivals, as a dense per-(router, port) view: each input
         # port receives at most one packet per cycle, from its unique
@@ -307,3 +415,139 @@ class SwitchCore:
         sq_count -= deq_src
         return nq_pkt, nq_count, sq_pkt, sq_count, eject_acc
 
+
+# ---------------------------------------------------------------- open loop
+# columns of the per-cycle integer stats: one row per cycle, written on
+# the device, read by the host once at the end of the run
+_INJ, _DLV, _OCC, _DROP, _INFL = range(5)
+
+
+def _open_loop_fold(lat_row, W: int):
+    """Open-loop ejection fold for one cycle: returns the number of
+    deliveries, and adds into `lat_row` [W + 1] int32 the latency sum of
+    the grants at each window offset (column W takes the queues that
+    ejected nothing and is never read).  The reference adds each
+    offset's int32 sum into a float32 total in offset order
+    (src/repro/sim/engine.py:597-604); `_fold_latency` does that on the
+    host from these exact per-offset sums."""
+    def fold(acc, ej_net, ej_src, pkt_net, pkt_src, cycle):
+        for ej, pkt in ((ej_net, pkt_net), (ej_src, pkt_src)):
+            g = ej >= 0
+            lat = torch.where(g, cycle - pk_time(pkt) + 1, 0).reshape(-1)
+            lat_row.index_add_(0, torch.where(g, ej, W).reshape(-1).long(),
+                               lat)
+        return (ej_net >= 0).sum(dtype=I32) + (ej_src >= 0).sum(dtype=I32)
+    return fold
+
+
+def _fold_latency(lat_w: np.ndarray) -> np.ndarray:
+    """[cycles, W] int32 per-offset latency sums -> the reference's
+    per-cycle float32 sum, 0.0 + f32(L_0) + ... + f32(L_{W-1}), added in
+    that order (float32 addition is not associative; a cycle's sum
+    passes 2^24 near saturation at q=19)."""
+    acc = np.zeros(lat_w.shape[0], dtype=np.float32)
+    for w in range(lat_w.shape[1]):
+        acc = acc + lat_w[:, w].astype(np.float32)
+    return acc
+
+
+def _assemble_result(tables: SimTables, traffic: Traffic, cfg: SimConfig,
+                     n_active: int, stats: tuple) -> SimResult:
+    """Host-side reduction of per-cycle stats into a SimResult (a copy
+    of the reference's `_assemble_result`)."""
+    inj, dlv, lat, occ_s, drop, infl = stats
+    inj = np.asarray(inj, dtype=np.int64)
+    dlv = np.asarray(dlv, dtype=np.int64)
+    lat = np.asarray(lat, dtype=np.float64)
+    occ_s = np.asarray(occ_s, dtype=np.float64)
+    drop = np.asarray(drop, dtype=np.int64)
+    infl = np.asarray(infl, dtype=np.int64)
+
+    n_ep = tables.n_endpoints
+    w = cfg.warmup
+    meas = slice(w, cfg.cycles)
+    m_cycles = cfg.cycles - w
+    delivered_m = int(dlv[meas].sum())
+    accepted = delivered_m / (m_cycles * max(n_active, 1))
+    avg_lat = float(lat[meas].sum() / max(delivered_m, 1))
+    return SimResult(
+        name=f"{traffic.name}-{cfg.mode}",
+        offered_load=cfg.injection_rate,
+        accepted_load=float(accepted),
+        avg_latency=avg_lat,
+        delivered=int(dlv.sum()),
+        injected=int(inj.sum()),
+        dropped_at_source=int(drop.sum()),
+        src_occupancy=float(occ_s[meas].mean() / max(n_ep, 1)),
+        per_cycle_delivered=dlv,
+        per_cycle_injected=inj,
+        per_cycle_in_flight=infl,
+        per_cycle_dropped=drop,
+        q_src=cfg.q_src,
+    )
+
+
+def simulate(tables: SimTables, traffic: Traffic, cfg: SimConfig,
+             device=None, source=None) -> SimResult:
+    """Open-loop Bernoulli injection for `cfg.cycles` cycles (paper §V).
+
+    Every cycle each active endpoint injects one single-flit packet with
+    probability `cfg.injection_rate` (refused, and counted as dropped,
+    at a full source queue) toward a destination from `traffic`, routed
+    by `cfg.mode`; latency and accepted load are measured after
+    `cfg.warmup` cycles.  Runs on `device` (default ``cuda``; raises
+    without a card unless ``device="cpu"`` is asked for).  Draws come
+    from `source` (default: a `TorchSource` seeded with `cfg.seed`; a
+    `ReplaySource` replays recorded draws).  The host reads the device
+    once, at the end."""
+    dev = resolve_device(device)
+    if cfg.telemetry:
+        raise NotImplementedError(
+            "telemetry is not ported yet: ROADMAP Queue 1 #9")
+    core = SwitchCore(tables, cfg, device=dev)
+    if source is None:
+        source = TorchSource(cfg.seed, dev)
+    n_ep, Qs, W = core.n_ep, core.Qs, core.W
+    n_active = int(traffic.active.sum())
+    active = torch.as_tensor(np.asarray(traffic.active, dtype=bool),
+                             device=dev)
+    sample = traffic.make_sampler(dev)
+    zeros_ep = torch.zeros((n_ep,), dtype=I32, device=dev)
+    rate = float(cfg.injection_rate)
+
+    nq_pkt, nq_count, sq_pkt, sq_count = core.init_queues()
+    stats = torch.zeros((cfg.cycles, 5), dtype=I32, device=dev)
+    lat_w = torch.zeros((cfg.cycles, W + 1), dtype=I32, device=dev)
+
+    for cycle in range(cfg.cycles):
+        source.begin_cycle(cycle)
+        occ = core.occupancy(nq_count)
+
+        # ---- injection (want and dropped read the cycle-start depths:
+        # inject updates sq_count in place)
+        coin = source.bernoulli("inj", rate, (n_ep,)) & active
+        want = coin & (sq_count < Qs)
+        dropped = (coin & ~want).sum(dtype=I32)
+        dst_r = core.ep_router[sample(source)]
+        inter, phase = core.route_decision(dst_r, occ, source)
+        new_pkt = pack_record(dst_r, inter, cycle, zeros_ep, phase)
+        sq_pkt, sq_count = core.inject(sq_pkt, sq_count, want, new_pkt)
+
+        # ---- shared switch pipeline with the open-loop fold
+        nq_pkt, nq_count, sq_pkt, sq_count, delivered = core.alloc(
+            nq_pkt, nq_count, sq_pkt, sq_count, occ, cycle,
+            _open_loop_fold(lat_w[cycle], W), None)
+
+        src_occ = sq_count.sum(dtype=I32)
+        torch.stack([want.sum(dtype=I32), delivered, src_occ, dropped,
+                     nq_count.sum(dtype=I32) + src_occ], out=stats[cycle])
+
+    source.finish()
+    check_i32(nq_pkt=nq_pkt, nq_count=nq_count, sq_pkt=sq_pkt,
+              sq_count=sq_count, stats=stats, lat_w=lat_w)
+    st = stats.cpu().numpy()                         # the one host sync
+    lat = _fold_latency(lat_w[:, :W].cpu().numpy())
+    return _assemble_result(
+        tables, traffic, cfg, n_active,
+        (st[:, _INJ], st[:, _DLV], lat, st[:, _OCC], st[:, _DROP],
+         st[:, _INFL]))

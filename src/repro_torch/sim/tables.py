@@ -1,10 +1,15 @@
 """Dense routing/port tables derived from a Topology, ported from
-`repro.sim.tables` for a healthy fabric.
+`repro.sim.tables`.
 
 The tables live on the host as numpy arrays; `SwitchCore` moves them
-to its device.  Failure masks (`with_failures`), ECMP sets and lane
-stacking (`stack`/`lane`) are not part of this slice of the port
-(ROADMAP Queue 1 #4, #6, #7).
+to its device.  Fault model (as in the reference): `build(...,
+failed_edges=...)` rebuilds the tables on the masked adjacency, with
+the port numbering of the HEALTHY fabric, dead ports as -1 in
+`nbr`/`rev_port`, and `port_toward`/`dist` from the re-converged
+routing; `with_failures(..., rebuild=False)` only kills the ports and
+keeps the stale route tables (the transient before routing
+re-converges).  ECMP sets and lane stacking (`stack`/`lane`) are not
+ported yet (ROADMAP Queue 1 #4, #7).
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ from typing import Optional
 import numpy as np
 
 from ..core.routing import RoutingTables, build_routing
-from ..core.topology import Topology
+from ..core.topology import Topology, normalize_failed_edges
 
 __all__ = ["SimTables"]
 
@@ -36,6 +41,7 @@ class SimTables:
     port_toward: np.ndarray       # [N, N] int16 first-hop MIN port (-1 self)
     dist: np.ndarray              # [N, N] int16 hops
     ep_router: np.ndarray         # [N_ep] int32 router id of each endpoint
+    failed_edges: Optional[np.ndarray] = None  # [K, 2] mask these tables saw
 
     # the arrays a table set is made of, beside its topology
     FIELDS = ("nbr", "rev_port", "port_toward", "dist", "ep_router")
@@ -46,7 +52,7 @@ class SimTables:
 
     @classmethod
     def from_numpy(cls, topo: Topology, *, nbr, rev_port, port_toward,
-                   dist, ep_router) -> "SimTables":
+                   dist, ep_router, failed_edges=None) -> "SimTables":
         """Tables from numpy arrays built elsewhere -- e.g. the fields of
         a reference `repro.sim.SimTables`, so that both engines can run
         on identical tables.  Dtypes are normalised to the engine's."""
@@ -56,20 +62,46 @@ class SimTables:
                    rev_port=np.asarray(rev_port, dtype=np.int32),
                    port_toward=np.asarray(port_toward, dtype=np.int16),
                    dist=np.asarray(dist, dtype=np.int16),
-                   ep_router=np.asarray(ep_router, dtype=np.int32))
+                   ep_router=np.asarray(ep_router, dtype=np.int32),
+                   failed_edges=failed_edges)
 
     @classmethod
     def build(cls, topo: Topology, rt: Optional[RoutingTables] = None,
-              device=None, kernel_path: str = "auto") -> "SimTables":
-        """Tables of the healthy fabric.  Without `rt`, routing is built
-        on `device` (default ``cuda``; see `build_routing`)."""
+              device=None, kernel_path: str = "auto", ecmp: bool = False,
+              failed_edges=None) -> "SimTables":
+        """Tables of the fabric, healthy or with `failed_edges` removed.
+        Without `rt`, routing is built on `device` (default ``cuda``;
+        see `build_routing`)."""
+        if ecmp:
+            raise NotImplementedError(
+                "equal-cost (ECMP) port sets are not ported yet: "
+                "ROADMAP Queue 1 #4")
+        if failed_edges is not None:
+            failed_edges = normalize_failed_edges(failed_edges, topo)
+        if rt is not None and failed_edges is not None:
+            # a pre-built rt must have seen the same mask, or the port
+            # tables would silently disagree with `failed_edges`
+            have = rt.failed_edges
+            if have is None or not np.array_equal(
+                    np.sort(np.sort(have, axis=1), axis=0),
+                    np.sort(np.sort(failed_edges, axis=1), axis=0)):
+                raise ValueError(
+                    "rt was not built with the given failed_edges mask")
         rt = rt or build_routing(topo, device=device,
-                                 kernel_path=kernel_path)
+                                 kernel_path=kernel_path,
+                                 failed_edges=failed_edges)
+        if failed_edges is None and rt.failed_edges is not None:
+            failed_edges = rt.failed_edges
         n = topo.n_routers
         P = topo.network_radix
+        # healthy port order, then failed links -> -1 pads
         nbr = topo.neighbor_lists(pad_to=P).astype(np.int32)
+        if failed_edges is not None and len(failed_edges):
+            rows, ports = np.nonzero(nbr >= 0)
+            dead = ~rt.adj[rows, nbr[rows, ports]]     # live adj from routing
+            nbr[rows[dead], ports[dead]] = -1
 
-        # port index of a given neighbor: inverse of nbr
+        # port index of a given neighbor: inverse of nbr (live links only)
         port_of = np.full((n, n), -1, dtype=np.int32)
         rows, ports = np.nonzero(nbr >= 0)
         port_of[rows, nbr[rows, ports]] = ports
@@ -77,7 +109,8 @@ class SimTables:
         rev_port = np.full((n, P), -1, dtype=np.int32)
         rev_port[rows, ports] = port_of[nbr[rows, ports], rows]
 
-        # first-hop MIN port toward every target (-1 for self)
+        # first-hop MIN port toward every target (-1 for self and for
+        # targets the mask cut off, whose next hop is -1)
         port_toward = np.full((n, n), -1, dtype=np.int16)
         nh = rt.next_hop
         rr = np.repeat(np.arange(n), n)
@@ -93,4 +126,34 @@ class SimTables:
 
         return cls(topo=topo, n_routers=n, P=P, p=topo.p, nbr=nbr,
                    rev_port=rev_port, port_toward=port_toward,
-                   dist=rt.dist.astype(np.int16), ep_router=ep_router)
+                   dist=rt.dist.astype(np.int16), ep_router=ep_router,
+                   failed_edges=failed_edges)
+
+    def with_failures(self, failed_edges, rebuild: bool = True,
+                      device=None, kernel_path: str = "auto"
+                      ) -> "SimTables":
+        """Degraded copy of these tables under an (additional) link mask.
+
+        rebuild=True re-converges routing on the masked adjacency (the
+        steady degraded state; routing runs on `device` as in `build`).
+        rebuild=False only marks the dead ports (-1 in nbr/rev_port) and
+        keeps the stale port_toward / dist -- the unconverged transient.
+        """
+        fe = normalize_failed_edges(failed_edges, self.topo)
+        if self.failed_edges is not None and len(self.failed_edges):
+            fe = np.concatenate([self.failed_edges, fe], axis=0)
+        if rebuild:
+            return SimTables.build(self.topo, device=device,
+                                   kernel_path=kernel_path, failed_edges=fe)
+        n = self.n_routers
+        dead = np.zeros((n, n), dtype=bool)
+        dead[fe[:, 0], fe[:, 1]] = True
+        dead[fe[:, 1], fe[:, 0]] = True
+        nbr = self.nbr.copy()
+        rev_port = self.rev_port.copy()
+        rows, ports = np.nonzero(nbr >= 0)
+        kill = dead[rows, nbr[rows, ports]]
+        nbr[rows[kill], ports[kill]] = -1
+        rev_port[rows[kill], ports[kill]] = -1
+        return dataclasses.replace(self, nbr=nbr, rev_port=rev_port,
+                                   failed_edges=fe)

@@ -1,5 +1,6 @@
 """Closed-loop dependency-triggered workload engine, ported from
-`repro.sim.workloads.closed_loop` (single job, table-routed MIN).
+`repro.sim.workloads.closed_loop` (single job, table-routed MIN, VAL,
+UGAL-L and UGAL-G).
 
 Each cycle the ready set is re-derived as a dense mask over the DAG's
 messages from the carried delivered-flit counters, every endpoint
@@ -26,6 +27,7 @@ import torch
 from ... import resolve_device
 from ..engine import BIG, SimConfig, SwitchCore, check_i32
 from ..packed import MAX_JOB_MSGS, MAX_JOBS, MSG_JOB_SHIFT, pack_record, pk_msg
+from ..random import TorchSource
 from ..tables import SimTables
 from .ir import Workload
 from .mapping import place_ranks
@@ -40,8 +42,9 @@ class WorkloadSimConfig:
     vcs: int = 4
     q_net: int = 16
     q_src: int = 64
-    mode: str = "min"                 # only "min" in this slice
+    mode: str = "min"                 # min | val | ugal_l | ugal_g
     routing: str = "table"            # "source": ROADMAP Queue 1 #8
+    n_val_candidates: int = 4
     lookahead: int = 4
     seed: int = 0
     placement: str = "linear"         # see workloads.mapping.PLACEMENTS
@@ -52,7 +55,9 @@ class WorkloadSimConfig:
 
     def to_sim_config(self) -> SimConfig:
         return SimConfig(vcs=self.vcs, q_net=self.q_net, q_src=self.q_src,
-                         mode=self.mode, lookahead=self.lookahead,
+                         mode=self.mode,
+                         n_val_candidates=self.n_val_candidates,
+                         lookahead=self.lookahead, seed=self.seed,
                          kernel_path=self.kernel_path)
 
 
@@ -140,11 +145,13 @@ def _msgs_by_ep(src_ep: np.ndarray, n_ep: int) -> np.ndarray:
 def run_workload(tables: SimTables, wl: Workload,
                  cfg: WorkloadSimConfig = WorkloadSimConfig(),
                  ep_of_rank: Optional[np.ndarray] = None,
-                 device=None) -> WorkloadResult:
+                 device=None, source=None) -> WorkloadResult:
     """Simulate `wl` to completion (or cfg.max_cycles) and report JCT.
 
     Runs on `device` (default ``cuda``; raises without a card unless
-    ``device="cpu"`` is asked for)."""
+    ``device="cpu"`` is asked for).  VAL/UGAL draw from `source`
+    (default: a `TorchSource` seeded with `cfg.seed`), one ``route``
+    draw per cycle, also past completion to the chunk boundary."""
     dev = resolve_device(device)
     if cfg.routing != "table":
         raise NotImplementedError(
@@ -158,6 +165,8 @@ def run_workload(tables: SimTables, wl: Workload,
     ep_of_rank = np.asarray(ep_of_rank, dtype=np.int32)
 
     core = SwitchCore(tables, cfg.to_sim_config(), device=dev)
+    if source is None:
+        source = TorchSource(cfg.seed, dev)
     space = _build_space((wl,), (ep_of_rank,))
     n_ep, Qs = core.n_ep, core.Qs
     M = space.n_messages
@@ -191,10 +200,12 @@ def run_workload(tables: SimTables, wl: Workload,
     start_c = torch.full((M + 1,), BIG, dtype=I32, device=dev)
     done_c = torch.full((M,), BIG, dtype=I32, device=dev)
 
-    def fold(acc, g_net, g_src, pkt_net, pkt_src, cycle):
-        # per-message flit accounting; J=1, so the MSG field is the
-        # global message id (job bits 0)
+    def fold(acc, ej_net, ej_src, pkt_net, pkt_src, cycle):
+        # per-message flit accounting (an integer sum: the grants' window
+        # offsets do not matter); J=1, so the MSG field is the global
+        # message id (job bits 0)
         delivered = acc
+        g_net, g_src = ej_net >= 0, ej_src >= 0
         mn = torch.where(g_net, pk_msg(pkt_net) & mid_mask, M).reshape(-1)
         ms = torch.where(g_src, pk_msg(pkt_src) & mid_mask, M)
         idx = torch.cat([mn, ms]).clamp(0, M).long()
@@ -203,6 +214,7 @@ def run_workload(tables: SimTables, wl: Workload,
 
     def step(cycle: int):
         nonlocal nq_pkt, nq_count, sq_pkt, sq_count
+        source.begin_cycle(cycle)
         occ = core.occupancy(nq_count)
 
         # ---- ready set over the DAG (dense mask, carried counters)
@@ -221,7 +233,7 @@ def run_workload(tables: SimTables, wl: Workload,
         # ---- inject one flit
         want = has & (sq_count < Qs)
         dst_r = dst_r_of_msg[mpick]
-        inter, phase = core.route_decision(dst_r, occ)
+        inter, phase = core.route_decision(dst_r, occ, source)
         new_pkt = pack_record(dst_r, inter, cycle, zeros_ep, phase,
                               msg=fid[mpick])
         sq_pkt, sq_count = core.inject(sq_pkt, sq_count, want, new_pkt)
@@ -256,6 +268,7 @@ def run_workload(tables: SimTables, wl: Workload,
         if int(host[cfg.chunk]) == M:
             completed = True
             break
+    source.finish()
 
     return _workload_result(
         wl, cfg, ep_of_rank,

@@ -18,7 +18,7 @@ from repro.sim import SimTables as JaxSimTables
 from repro.sim.workloads import WorkloadSimConfig as JaxCfg
 from repro.sim.workloads import run_workload as jax_run_workload
 import repro_torch.core as tc
-from repro_torch.sim import SimTables
+from repro_torch.sim import SimConfig, SimTables, make_traffic, simulate
 from repro_torch.sim.workloads import (WorkloadSimConfig, ring_all_reduce,
                                        run_workload, stencil)
 
@@ -144,13 +144,34 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     _, tt = _tables(5)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_workload(tt, ring_all_reduce(4, 2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulate(tt, make_traffic(tt, "uniform"), SimConfig(cycles=2))
 
 
-@pytest.mark.parametrize("kw", [dict(mode="ugal_l"), dict(mode="val"),
-                                dict(mode="ecmp"), dict(routing="source"),
-                                dict(telemetry=True)])
-def test_unported_options_raise(kw):
+UNPORTED = {
+    "run_workload-ecmp": lambda tt: run_workload(
+        tt, ring_all_reduce(4, 2), WorkloadSimConfig(mode="ecmp"),
+        device="cpu"),
+    "run_workload-source": lambda tt: run_workload(
+        tt, ring_all_reduce(4, 2), WorkloadSimConfig(routing="source"),
+        device="cpu"),
+    "run_workload-telemetry": lambda tt: run_workload(
+        tt, ring_all_reduce(4, 2), WorkloadSimConfig(telemetry=True),
+        device="cpu"),
+    "simulate-ecmp": lambda tt: simulate(
+        tt, make_traffic(tt, "uniform"), SimConfig(mode="ecmp", cycles=2),
+        device="cpu"),
+    "simulate-telemetry": lambda tt: simulate(
+        tt, make_traffic(tt, "uniform"), SimConfig(telemetry=True, cycles=2),
+        device="cpu"),
+    "worstcase_df": lambda tt: make_traffic(tt, "worstcase_df"),
+    "tables-ecmp": lambda tt: SimTables.build(tt.topo, device="cpu",
+                                              ecmp=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNPORTED))
+def test_unported_options_raise(case):
     _, tt = _tables(5)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        run_workload(tt, ring_all_reduce(4, 2), WorkloadSimConfig(**kw),
-                     device="cpu")
+        UNPORTED[case](tt)

@@ -15,8 +15,10 @@ import torch
 
 from repro_torch.kernels.alloc import alloc_rounds_cuda, alloc_rounds_ref
 from repro_torch.kernels.minplus import minplus_cuda, minplus_ref
+from repro_torch.kernels.ugal import ugal_select_cuda, ugal_select_ref
 
 BIG = 3.0e38
+UNREACH, BIG_I = 1 << 14, 1 << 30
 
 
 def _minplus_inputs(shape, seed):
@@ -70,6 +72,33 @@ def _alloc_inputs(seed, N=13, P=5, V=2, PE=3, W=4, cycle=199_999):
 ALLOC_CASES = [(0, 199_999), (1, 7), (2, 200_000), (3, 12_346)]
 
 
+def _ugal_inputs(seed, E, C):
+    """UGAL selection contracts with dead paths (lengths >= UNREACH, up
+    to the 2 * UNREACH of a Valiant path with both halves cut), forced
+    ties (rows whose occupancies are drawn from {0, 1}), and UGAL-L
+    products that overflow int32 (live lengths up to UNREACH - 1 times
+    occupancies up to OCC_CAP = 2^20)."""
+    rng = np.random.default_rng(seed)
+    lens = np.array([1, 2, 3, 4, 4095, UNREACH - 1, UNREACH, UNREACH + 3,
+                     2 * UNREACH])
+    p = np.array([4, 6, 6, 4, 1, 1, 2, 1, 1], dtype=float)
+    p /= p.sum()
+    len_min = rng.choice(lens, E, p=p)
+    len_val = rng.choice(lens, (E, C), p=p)
+    occ_min = rng.integers(0, (1 << 20) + 1, E)
+    occ_val = rng.integers(0, (1 << 20) + 1, (E, C))
+    tie = rng.random(E) < 0.3
+    occ_min[tie] = rng.integers(0, 2, int(tie.sum()))
+    occ_val[tie] = rng.integers(0, 2, (int(tie.sum()), C))
+    len_val[tie] = np.where(len_val[tie] < UNREACH, len_min[tie, None],
+                            len_val[tie])
+    return tuple(np.ascontiguousarray(a.astype(np.int32))
+                 for a in (len_min, len_val, occ_min, occ_val))
+
+
+UGAL_CASES = [(0, 700, 4), (1, 513, 1), (2, 256, 7), (3, 1, 4)]
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -99,6 +128,49 @@ def test_alloc_cuda_matches_plain(cuda_device, seed, cycle):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ugal_g", [False, True])
+@pytest.mark.parametrize("seed,E,C", UGAL_CASES + [(4, 10_830, 4)])
+def test_ugal_cuda_matches_plain(cuda_device, seed, E, C, ugal_g):
+    ts = [torch.from_numpy(a).to(cuda_device)
+          for a in _ugal_inputs(seed, E, C)]
+    kw = dict(ugal_g=ugal_g, unreach=UNREACH, big=BIG_I)
+    before = ugal_select_cuda.launches
+    got = ugal_select_cuda(*ts, **kw)
+    torch.cuda.synchronize()
+    assert ugal_select_cuda.launches == before + 1
+    torch.testing.assert_close(got, ugal_select_ref(*ts, **kw), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["val", "ugal_l", "ugal_g"])
+def test_open_loop_kernel_path_matches_plain_path(cuda_device, mode):
+    """The open loop on the card, healthy and with a failure mask:
+    kernels against plain versions, every result field equal."""
+    from repro_torch.core import build_slimfly
+    from repro_torch.kernels import launch_counts
+    from repro_torch.sim import SimConfig, SimTables, make_traffic, simulate
+    healthy = SimTables.build(build_slimfly(5), device=cuda_device)
+    rng = np.random.default_rng(5)
+    edges = healthy.topo.edge_list()
+    masked = healthy.with_failures(
+        edges[rng.choice(len(edges), len(edges) // 10, replace=False)])
+    for tables in (healthy, masked):
+        tr = make_traffic(tables, "uniform")
+        runs = []
+        for path in ("cuda", "ref"):
+            before = launch_counts()["ugal_select"]
+            runs.append(simulate(tables, tr, SimConfig(
+                injection_rate=0.6, cycles=300, warmup=100, mode=mode,
+                seed=3, kernel_path=path)))
+            launched = launch_counts()["ugal_select"] - before
+            assert launched == (300 if path == "cuda" and mode != "val"
+                                else 0)
+        for f, v in vars(runs[0]).items():
+            np.testing.assert_array_equal(v, getattr(runs[1], f), err_msg=f)
 
 
 @pytest.mark.cuda
