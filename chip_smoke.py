@@ -6,7 +6,7 @@
 Phases, one JSON line each; any failure exits non-zero:
 
 1. device: the card's name, its power limit and clocks (nvidia-smi);
-2. build: the three CUDA kernels compiled from
+2. build: the four CUDA kernels compiled from
    `src/repro_torch/kernels/csrc` (one nvcc per source, all started
    together), with ptxas's resource report;
 3. min-plus kernel against its plain version on the card: the q=19
@@ -44,13 +44,38 @@ Phases, one JSON line each; any failure exits non-zero:
 11. paths_equal_open: the open loop at q=7, val/ugal_l/ugal_g on uniform
     and worstcase_sf, healthy and with a failure mask, kernel path
     against plain path with the same seed: every field and per-cycle
-    array equal.
+    array equal;
+12. attn_decode: the decode-attention kernel against its plain version
+    at gemma2-2b's global (S = 8192) and local (S = 4096) layer shapes
+    with cap 50 and ragged lengths, h2o-danube-1.8b's head dim 80, the
+    reference kernel test's four shapes and an S off the tile, each with
+    float32 and bfloat16 inputs, within a stated tolerance; the kernel's,
+    the plain version's and scaled_dot_product_attention's times (cap
+    None: no PyTorch call computes the capped function) beside the byte
+    bound;
+13. serve (the serving slice's main path, at full width): gemma2-2b with
+    random weights from a seeded generator on the card, float32, a
+    ServingEngine of 4 slots and max_len 8192 serving 6 requests (prompts
+    of 4500 ... 5 tokens; slots refill; the 4500-token prompt takes the
+    ring roll on the 4096-position local layers): every request gets its
+    token count, the decode kernel launches 26 x (decode steps) times;
+    prefill seconds, decode ms per step, tokens/s, the weight-read bound
+    and peak memory;
+14. serve_paths_equal: the same weights and requests with
+    kernel_path="ref", fed the kernel path's tokens: logits within a
+    stated relative tolerance, equal greedy tokens except where the top-2
+    margin is below it;
+15. serve_held: reduced gemma2-2b (4 layers) with numpy-seeded weights
+    served on the card, greedy tokens equal to the reference's
+    (GOLDEN_SERVE_HELD).
 
-Then a line {"kernels": [...]} with each kernel's launches on the open
-loop's main path, its largest difference from the plain version, its
-time, the plain version's time, its bound and what bounds it; and the
-last line {"ok": true, "device": {...}}.  Without CUDA, or without the
-repository around it, it fails before printing any result.
+Then a line {"kernels": [...]} with each kernel's launches on its main
+path (the open loop's for the simulator's three kernels, the serve
+phase's for decode attention), its largest difference from the plain
+version, its time, the plain version's time, its bound and what bounds
+it, and the library call's time where one exists; and the last line
+{"ok": true, "device": {...}}.  Without CUDA, or without the repository
+around it, it fails before printing any result.
 """
 
 import json
@@ -107,6 +132,67 @@ OPEN_LOOP_CFG = dict(injection_rate=0.5, cycles=3000, warmup=1000,
 WORSTCASE_CFG = dict(injection_rate=0.2, cycles=1500, warmup=500,
                      lookahead=6, mode="ugal_l", seed=0)
 UNREACH, BIG_I = 1 << 14, 1 << 30
+
+# Phase 12's cases: (name, B, Hkv, G, d, S, cap, lengths or None = drawn)
+DECODE_CASES = [
+    ("gemma2_global", 4, 4, 2, 256, 8192, 50.0, (1, 4096, 4500, 8192)),
+    ("gemma2_local", 4, 4, 2, 256, 4096, 50.0, (1, 2049, 4096, 4096)),
+    ("danube", 2, 8, 4, 80, 4096, None, (4096, 77)),
+    ("ref_minimal", 1, 1, 1, 32, 64, None, None),
+    ("ref_ragged", 2, 4, 7, 64, 300, None, None),
+    ("ref_aligned", 1, 2, 8, 128, 1024, None, None),
+    ("ref_d80_g16", 3, 1, 16, 80, 129, None, None),
+    ("off_tile", 2, 3, 2, 256, 1000, 50.0, (999, 1000)),
+]
+# (atol, rtol).  float32: the same sums in another order.  bfloat16: the
+# float32 result rounded once, which may land one bfloat16 step (at most
+# 2**-7 of the value) away from the plain version's rounding; the atol
+# stays well below |out| of a long row (~0.015 at S = 4096-8192), so a
+# row that came out zero or lost a split fails.
+DECODE_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-3, 8e-3)}
+
+# Phases 13-14: gemma2-2b served at full width
+SERVE_PROMPTS = (4500, 2049, 1024, 300, 77, 5)
+SERVE_NEW = (32, 8, 24, 16, 40, 32)
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_SEED = 4, 8192, 0
+# Requests 0-3 take the four slots; request 4 refills slot 1 after step 7,
+# request 5 slot 3 after step 15; both finish at step 46.
+SERVE_STEPS = 46
+# Logits of the kernel path against the plain path, relative to the
+# largest |logit|: float32 attention sums in another order, through 26
+# layers (the bar the CPU tests hold the port to against JAX)
+LOGIT_RTOL = 1e-4
+
+# Phase 15: reduced gemma2-2b (4 layers, d_model 64, window 16) with the
+# weights of numpy_params(cfg, seed=0), 2 slots, max_len 64, prompts drawn
+# from default_rng(13).  Greedy tokens of the reference engine
+# (repro.serving.ServingEngine, jax 0.9.0) on the CPU:
+#   JAX_PLATFORMS=cpu PYTHONPATH=src python -c "
+#   import numpy as np, jax, jax.numpy as jnp
+#   from repro.configs import get, reduced
+#   from repro.serving import Request, ServingEngine
+#   from repro_torch.models.model import numpy_params
+#   cfg = reduced(get('gemma2-2b'), n_layers=4)
+#   p = jax.tree.map(jnp.asarray, numpy_params(cfg, 0))
+#   rng = np.random.default_rng(13)
+#   reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n,
+#                   dtype=np.int32), max_new_tokens=m) for i, (n, m) in
+#           enumerate(zip((40, 17, 5, 23, 9), (12, 6, 20, 9, 15)))]
+#   done = ServingEngine(p, cfg, batch_slots=2, max_len=64).run(reqs)
+#   print({r.rid: r.out_tokens for r in done})"
+# The smallest top-2 logit margin of that run is 9.1e-4 of the largest
+# |logit|, so float32 rounding cannot flip a token.
+SERVE_HELD = dict(n_layers=4, seed=0, slots=2, max_len=64, prompt_seed=13,
+                  prompts=(40, 17, 5, 23, 9), new=(12, 6, 20, 9, 15))
+GOLDEN_SERVE_HELD = {
+    0: [38, 90, 54, 226, 49, 78, 156, 236, 23, 210, 36, 210],
+    1: [224, 119, 139, 139, 139, 23],
+    2: [23, 23, 23, 23, 23, 23, 23, 23, 83, 83, 83, 83, 83, 83, 83, 83, 83,
+        83, 83, 83],
+    3: [120, 91, 100, 122, 243, 243, 94, 52, 168],
+    4: [115, 115, 115, 110, 103, 105, 115, 20, 212, 210, 212, 32, 241, 113,
+        113],
+}
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W limit):
 # HBM bandwidth, and float32 outside the tensor cores
@@ -231,6 +317,274 @@ def failure_sample(topo, frac, seed):
                             replace=False)]
 
 
+def decode_inputs(case, dev, seed):
+    """Float32 q, k, v (standard normal, numpy-seeded) and int32 lengths
+    on `dev` for one DECODE_CASES entry."""
+    import numpy as np
+    import torch
+    _, B, Hkv, G, d, S, _, lengths = case
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Hkv, G, d), dtype=np.float32)
+    k = rng.standard_normal((B, Hkv, S, d), dtype=np.float32)
+    v = rng.standard_normal((B, Hkv, S, d), dtype=np.float32)
+    if lengths is None:
+        lengths = rng.integers(1, S + 1, B)
+    return ([torch.from_numpy(a).to(dev) for a in (q, k, v)]
+            + [torch.tensor(lengths, dtype=torch.int32, device=dev)])
+
+
+def decode_bound(q, k, length):
+    """(bound ms, bytes, flops) of one decode-attention call: read q, the
+    K and V of the valid positions and the lengths once, write the
+    output once; 4 G d flops per valid position and kv head."""
+    B, Hkv, G, d = q.shape
+    valid = int(length.sum())
+    nbytes = (valid * Hkv * 2 * d * k.element_size()
+              + 2 * q.numel() * q.element_size() + 4 * B)
+    flops = valid * Hkv * G * 4 * d
+    return (1e3 * max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_OPS_S),
+            nbytes, flops)
+
+
+def sdpa_call(q, k, v, length):
+    """PyTorch's scaled_dot_product_attention on the same function without
+    a cap: q as [B, Hkv * G, 1, d] (head h reads kv head h // G), a
+    boolean mask of the valid positions."""
+    import torch
+    import torch.nn.functional as F
+    B, Hkv, G, d = q.shape
+    S = k.shape[2]
+    pos = torch.arange(S, device=q.device)
+    mask = (pos[None, :] < length[:, None].long())[:, None, None, :]
+    qh = q.reshape(B, Hkv * G, 1, d)
+    return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def serve_requests(Request, vocab, prompts, new, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, n, dtype=np.int32),
+                    max_new_tokens=m)
+            for i, (n, m) in enumerate(zip(prompts, new))]
+
+
+def attn_decode_phase(dev, report) -> None:
+    """Phase 12: the decode-attention kernel against its plain version,
+    and its times; fills report["decode_attention"]."""
+    import torch
+    from repro_torch.kernels.attn_decode import (decode_attention_cuda,
+                                                 decode_attention_ref,
+                                                 split_plan)
+
+    t0 = time.perf_counter()
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    checked = []
+    for ci, case in enumerate(DECODE_CASES):
+        cname, B, Hkv, G, d, S, cap, _ = case
+        base = decode_inputs(case, dev, seed=ci)
+        for dt_name, dt in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+            q, k, v = (x.to(dt) for x in base[:3])
+            ln = base[3]
+            scale = 1.0 / d ** 0.5
+            got = decode_attention_cuda(q, k, v, scale=scale, length=ln,
+                                        cap=cap)
+            want = decode_attention_ref(q, k, v, scale=scale, length=ln,
+                                        cap=cap)
+            torch.cuda.synchronize()
+            atol, rtol = DECODE_TOL[dt_name]
+            diff = (got.float() - want.float()).abs()
+            assert got.dtype == dt and bool(torch.isfinite(got).all()), cname
+            assert not bool((diff > atol + rtol * want.float().abs()).any()), (
+                cname, dt_name, diff.max().item())
+            err[dt_name] = max(err[dt_name], diff.max().item())
+            checked.append(f"{cname}/{dt_name}")
+        del base, q, k, v
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def decode_times(B, Hkv, G, d, S, lengths, dt, cap=50.0):
+        q = torch.randn((B, Hkv, G, d), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, Hkv, S, d), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, Hkv, S, d), generator=gen, device=dev).to(dt)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        scale = 1.0 / d ** 0.5
+        ms = time_ms(lambda: decode_attention_cuda(
+            q, k, v, scale=scale, length=ln, cap=cap), iters=50)
+        plain = time_ms(lambda: decode_attention_ref(
+            q, k, v, scale=scale, length=ln, cap=cap), iters=10)
+        lib = sdpa_call(q, k, v, ln)
+        lib_ms = time_ms(lib, iters=20)
+        # the yardstick computes the function without the cap
+        lib_diff = (lib().reshape(B, Hkv, G, d).float()
+                    - decode_attention_cuda(q, k, v, scale=scale, length=ln)
+                    .float()).abs().max().item()
+        bound_ms, nbytes, flops = decode_bound(q, k, ln)
+        return dict(shape=[B, Hkv, G, d, S], lengths=list(lengths),
+                    dtype=str(dt).replace("torch.", ""), cap=cap,
+                    n_split=split_plan(B * Hkv, S, torch.cuda.
+                                       get_device_properties(0).
+                                       multi_processor_count)[0],
+                    ms=ms, plain_ms=plain, library_ms=lib_ms,
+                    library_max_abs_diff_no_cap=lib_diff,
+                    bound_ms=bound_ms, bytes=nbytes, flops=flops,
+                    bound_share=bound_ms / ms)
+    dtimes = {
+        "global_full_f32": decode_times(4, 4, 2, 256, 8192, (8192,) * 4,
+                                        torch.float32),
+        "global_ragged_f32": decode_times(4, 4, 2, 256, 8192,
+                                          (1, 4096, 4500, 8192),
+                                          torch.float32),
+        "local_full_f32": decode_times(4, 4, 2, 256, 4096, (4096,) * 4,
+                                       torch.float32),
+        "global_full_bf16": decode_times(4, 4, 2, 256, 8192, (8192,) * 4,
+                                         torch.bfloat16),
+    }
+    main_t = dtimes["global_full_f32"]
+    report["decode_attention"] = dict(
+        max_abs_err=err["float32"], max_abs_err_bf16=err["bfloat16"],
+        ms=main_t["ms"], plain_ms=main_t["plain_ms"],
+        bound_ms=main_t["bound_ms"], library_ms=main_t["library_ms"])
+    emit({"phase": "attn_decode", "cases": checked, "tolerance": DECODE_TOL,
+          "max_abs_err": err, "times": dtimes,
+          "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa)"
+                     " without the cap: no PyTorch call computes the capped "
+                     "function", "wall_s": time.perf_counter() - t0})
+
+
+def serve_phases(dev) -> dict:
+    """Phases 13-15: gemma2-2b served at full width through the decode
+    kernel, the same run through the plain version, and a reduced model
+    held to the reference's tokens.  Returns the launch counts of the
+    phase-13 run."""
+    import torch
+    from repro_torch import configs, kernels
+    from repro_torch.models.model import (init_params, numpy_params,
+                                          param_count, params_from_numpy)
+    from repro_torch.serving import Request, ServingEngine
+
+    # ---- 13. serving main path: gemma2-2b at full width
+    cfg = configs.get("gemma2-2b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SERVE_SEED))                            # device defaults to cuda
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(params)
+    weight_bytes = 4 * n_params
+    recorded = []           # (logits, greedy tokens) of every sampler call
+
+    def record(logits):
+        tok = torch.argmax(logits, -1)
+        recorded.append((logits.clone(), tok.clone()))
+        return tok
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(params, cfg, batch_slots=SERVE_SLOTS,
+                        max_len=SERVE_MAX_LEN, sampler=record)
+    admit_s = [0.0]
+    real_admit = eng._admit
+
+    def timed_admit(slot, req):
+        torch.cuda.synchronize()
+        ta = time.perf_counter()
+        real_admit(slot, req)
+        torch.cuda.synchronize()
+        admit_s[0] += time.perf_counter() - ta
+    eng._admit = timed_admit
+    reqs = serve_requests(Request, cfg.vocab, SERVE_PROMPTS, SERVE_NEW,
+                          SERVE_SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches_serve = kernels.launch_counts()
+    peak_serve = torch.cuda.max_memory_allocated()
+    decode_s = run_s - admit_s[0]
+    decoded = sum(len(r.out_tokens) - 1 for r in done)
+    out_counts = {r.rid: len(r.out_tokens) for r in done}
+    serve_tokens = {r.rid: r.out_tokens for r in done}
+    emit({"phase": "serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab, "params": n_params,
+          "weight_bytes": weight_bytes, "dtype": "float32",
+          "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
+          "prompts": SERVE_PROMPTS, "max_new_tokens": SERVE_NEW,
+          "tokens_out": out_counts, "decode_steps": eng.steps,
+          "init_params_s": init_s, "prefill_s": admit_s[0],
+          "decode_s": decode_s, "decode_ms_per_step": 1e3 * decode_s
+          / eng.steps, "decode_tokens": decoded,
+          "decode_tokens_per_s": decoded / decode_s,
+          "weight_bound_ms_per_step": 1e3 * weight_bytes / PEAK_BYTES_S,
+          "max_memory_allocated": peak_serve, "launches": launches_serve})
+    assert len(done) == len(SERVE_PROMPTS)
+    assert all(len(r.out_tokens) == r.max_new_tokens for r in done), (
+        out_counts)
+    assert eng.steps == SERVE_STEPS, eng.steps
+    assert launches_serve["decode_attention"] == cfg.n_layers * eng.steps, (
+        launches_serve)
+    del eng, done
+    torch.cuda.empty_cache()
+
+    # ---- 14. serving, kernel path against plain path, same tokens fed
+    calls = [0]
+    worst = [0.0]
+    flips = []
+
+    def forced(logits):
+        k_logits, k_tok = recorded[calls[0]]
+        rel = ((logits - k_logits).abs().max()
+               / k_logits.abs().max()).item()
+        worst[0] = max(worst[0], rel)
+        tok = torch.argmax(logits, -1)
+        for row in torch.nonzero(tok != k_tok).flatten().tolist():
+            top2 = torch.topk(logits[row], 2).values
+            margin = ((top2[0] - top2[1]) / logits.abs().max()).item()
+            flips.append(dict(call=calls[0], row=row, margin=margin,
+                              ok=margin < LOGIT_RTOL))
+        calls[0] += 1
+        return k_tok
+    before = kernels.launch_counts()["decode_attention"]
+    t0 = time.perf_counter()
+    eng = ServingEngine(params, cfg, batch_slots=SERVE_SLOTS,
+                        max_len=SERVE_MAX_LEN, sampler=forced,
+                        kernel_path="ref")
+    done = eng.run(serve_requests(Request, cfg.vocab, SERVE_PROMPTS,
+                                  SERVE_NEW, SERVE_SEED))
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    emit({"phase": "serve_paths_equal", "sampler_calls": calls[0],
+          "max_rel_logit_diff": worst[0], "logit_rtol": LOGIT_RTOL,
+          "token_flips": flips, "ref_run_s": ref_s,
+          "tokens_equal": {r.rid: r.out_tokens for r in done}
+          == serve_tokens})
+    assert kernels.launch_counts()["decode_attention"] == before
+    assert calls[0] == len(recorded), (calls[0], len(recorded))
+    assert worst[0] <= LOGIT_RTOL, worst[0]
+    assert all(f["ok"] for f in flips), flips
+    del eng, done, params, recorded
+    torch.cuda.empty_cache()
+
+    # ---- 15. reduced gemma2-2b held against the reference's tokens
+    h = SERVE_HELD
+    cfg_h = configs.reduced(configs.get("gemma2-2b"), n_layers=h["n_layers"])
+    eng = ServingEngine(params_from_numpy(numpy_params(cfg_h, h["seed"]),
+                                          cfg_h),
+                        cfg_h, batch_slots=h["slots"], max_len=h["max_len"])
+    before = kernels.launch_counts()["decode_attention"]
+    done = eng.run(serve_requests(Request, cfg_h.vocab, h["prompts"],
+                                  h["new"], h["prompt_seed"]))
+    got = {r.rid: r.out_tokens for r in done}
+    launched = kernels.launch_counts()["decode_attention"] - before
+    emit({"phase": "serve_held", "arch": cfg_h.name, **h,
+          "decode_steps": eng.steps, "launches": launched,
+          "equal": got == GOLDEN_SERVE_HELD})
+    assert launched == cfg_h.n_layers * eng.steps > 0
+    assert got == GOLDEN_SERVE_HELD, got
+    return launches_serve
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -249,6 +603,11 @@ def main() -> int:
     from repro_torch.sim.workloads import (WorkloadSimConfig, run_workload,
                                            stencil)
 
+    # full float32 products everywhere: TF32 would move the serving
+    # logits off the reference's (phases 14-15)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda")
     t_all = time.perf_counter()
 
@@ -265,10 +624,11 @@ def main() -> int:
 
     # ---- 2. build
     t0 = time.perf_counter()
-    secs = _cuda.build(["minplus", "alloc", "ugal"])
+    sources = ["minplus", "alloc", "ugal", "attn_decode"]
+    secs = _cuda.build(sources)
     ptxas = {k: [ln.strip() for ln in _cuda.build_log(k).splitlines()
                  if "registers" in ln or "spill" in ln]
-             for k in ("minplus", "alloc", "ugal")}
+             for k in sources}
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
           "per_kernel_s": secs, "ptxas": ptxas})
 
@@ -366,7 +726,8 @@ def main() -> int:
           "launches": launches_open})
     assert conservation(ro), "open loop lost or duplicated flits"
     assert ro.delivered > 0 and np.isfinite(ro.avg_latency)
-    assert all(launches_open[k] > 0 for k in kernels.KERNELS), launches_open
+    assert all(launches_open[k] > 0 for k in
+               ("minplus", "alloc_rounds", "ugal_select")), launches_open
     assert launches_open["ugal_select"] == OPEN_LOOP_CFG["cycles"]
     assert launches_open["alloc_rounds"] == OPEN_LOOP_CFG["cycles"]
 
@@ -575,9 +936,13 @@ def main() -> int:
           "tables": ["healthy", "masked 10%"], "equal": True,
           "wall_s": time.perf_counter() - t0})
 
+    attn_decode_phase(dev, report)                       # phase 12
+    launches_serve = serve_phases(dev)                   # phases 13-15
+
     src = "src/repro_torch/kernels/csrc/"
-    # launches: the open loop's main path (phase 5), which runs all three
-    # kernels; the closed loop's (phase 4) ride beside
+    # launches: the open loop's main path (phase 5), which runs the three
+    # simulator kernels, the closed loop's (phase 4) riding beside; the
+    # serving path's (phase 13) for decode attention
     rows = [
         dict(name="minplus", route="cuda", source=src + "minplus.cu",
              replaces="src/repro/kernels/minplus.py:58",
@@ -594,6 +959,11 @@ def main() -> int:
              launches=launches_open["ugal_select"],
              launches_closed_loop=launches["ugal_select"], bound_by="bytes",
              library_ms=None, **report["ugal_select"]),
+        dict(name="decode_attention", route="cuda",
+             source=src + "attn_decode.cu",
+             replaces="src/repro/kernels/attn_decode.py:81",
+             launches=launches_serve["decode_attention"], bound_by="bytes",
+             **report["decode_attention"]),
     ]
     emit({"wall_s": time.perf_counter() - t_all})
     print(smi_line, flush=True)

@@ -6,9 +6,11 @@ of `repro`: numpy-only modules of the reference are kept here as
 copies.
 
 Entry points (`core.routing.build_routing`, `sim.tables.SimTables.build`,
-`sim.simulate`, `sim.workloads.run_workload`) run on the card: their `device` argument
-defaults to ``"cuda"``, and without a CUDA device they raise unless the
-caller passes ``device="cpu"`` explicitly.  There is no silent fallback.
+`sim.simulate`, `sim.workloads.run_workload`, `serving.ServingEngine`,
+`models.model.init_params` / `params_from_numpy` / `init_cache`) run on
+the card: their `device` argument defaults to ``"cuda"``, and without a
+CUDA device they raise unless the caller passes ``device="cpu"``
+explicitly.  There is no silent fallback.
 """
 
 from __future__ import annotations

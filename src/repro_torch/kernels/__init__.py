@@ -7,21 +7,27 @@ version and a launch count.
            (replaces `repro.kernels.alloc.alloc_rounds_pallas`)
 - ugal:    UGAL/VAL candidate selection at injection
            (replaces `repro.kernels.alloc.ugal_select_pallas`)
-- ops:     seeded distances and APSP; ref: the plain versions.
+- attn_decode: GQA flash-decode attention of the serving path
+           (replaces `repro.kernels.attn_decode.decode_attention_pallas`)
+- ops:     seeded distances, APSP and decode attention; ref: the plain
+           versions.
 Sources are under csrc/; `_cuda` builds them with nvcc on first use.
 """
 
 from .alloc import alloc_rounds, alloc_rounds_cuda
+from .attn_decode import decode_attention_cuda
 from .minplus import minplus_cuda
-from .ops import apsp, minplus, seed_distance
+from .ops import apsp, decode_attention, minplus, seed_distance
 from .ugal import ugal_select, ugal_select_cuda
 
-__all__ = ["KERNELS", "alloc_rounds", "apsp", "launch_counts",
-           "minplus", "reset_launch_counts", "seed_distance", "ugal_select"]
+__all__ = ["KERNELS", "alloc_rounds", "apsp", "decode_attention",
+           "launch_counts", "minplus", "reset_launch_counts",
+           "seed_distance", "ugal_select"]
 
 # kernel name -> its wrapper, which counts its own launches
 KERNELS = {"minplus": minplus_cuda, "alloc_rounds": alloc_rounds_cuda,
-           "ugal_select": ugal_select_cuda}
+           "ugal_select": ugal_select_cuda,
+           "decode_attention": decode_attention_cuda}
 
 
 def launch_counts() -> dict:

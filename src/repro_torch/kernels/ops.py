@@ -1,14 +1,17 @@
-"""Public wrappers around the (min,+) kernel: seeded distances and APSP
-by repeated squaring, as in `repro.kernels.ops`."""
+"""Public wrappers around the kernels, as in `repro.kernels.ops`: seeded
+distances and APSP by repeated (min,+) squaring, and GQA decode
+attention."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ._cuda import use_kernel
+from .attn_decode import decode_attention_cuda, decode_attention_ref
 from .minplus import BIG_F, minplus
 
-__all__ = ["seed_distance", "minplus", "apsp"]
+__all__ = ["seed_distance", "minplus", "apsp", "decode_attention"]
 
 
 def seed_distance(adj, device) -> torch.Tensor:
@@ -35,3 +38,17 @@ def apsp(adj, *, device, max_diameter: int | None = None,
     for _ in range(n_iter):
         d = minplus(d, d, kernel_path=kernel_path)
     return d
+
+
+def decode_attention(q, k, v, length=None, *, cap=None,
+                     kernel_path: str = "auto"):
+    """GQA decode attention scaled by 1/sqrt(d) of the head dim.
+
+    q: [B, Hkv, G, d]; k, v: [B, Hkv, S, d]; length: [B] int32 valid KV
+    lengths (None: all S).  The kernel takes any G <= 16 and d <= 256 as
+    they are: the reference pads G to 8 and d to 128 only for the TPU's
+    tiles."""
+    scale = float(1.0 / (q.shape[-1] ** 0.5))
+    fn = (decode_attention_cuda if use_kernel(kernel_path, q)
+          else decode_attention_ref)
+    return fn(q, k, v, scale=scale, length=length, cap=cap)

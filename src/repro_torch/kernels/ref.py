@@ -4,7 +4,7 @@ Each function here has the same contract as one hand-written kernel in
 `repro_torch.kernels` and is what a kernel wrapper runs for a tensor
 that lies on the CPU; `chip_smoke.py` and the `cuda`-marked tests hold
 each kernel against it on the card.  They follow the reference's
-oracles in `repro.kernels.ref` with two deliberate differences:
+oracles in `repro.kernels.ref`, with these deliberate differences:
 
 - `minplus_ref` saturates at 3e38 like the reference's Pallas kernel
   (`repro.kernels.minplus.minplus_pallas`), not like its unsaturated
@@ -18,6 +18,10 @@ oracles in `repro.kernels.ref` with two deliberate differences:
 - `ugal_select_ref` computes UGAL-L's ``len * occ`` in int64 and wraps
   it to int32 explicitly, which is the two's-complement wrap that jnp's
   int32 multiply gives (torch leaves int32 overflow to C++).
+
+`decode_attention_ref` is the reference's oracle as it stands: one
+float32 softmax over every position, masked with -inf (the kernel skips
+masked positions instead of scoring them at -3e38).
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["BIG_F", "KSHIFT", "minplus_ref", "alloc_rounds_ref",
-           "ugal_select_ref"]
+           "ugal_select_ref", "decode_attention_ref", "default_scale"]
 
 BIG_F = 3.0e38   # +inf stand-in of the distance matrices (inf-free sums)
 
@@ -208,3 +212,33 @@ def _mul_wrap32(a, b):
     """int32 a * b with two's-complement wrap, as jnp computes it."""
     prod = (a.to(torch.int64) * b.to(torch.int64)) & 0xFFFFFFFF
     return torch.where(prod >= 1 << 31, prod - (1 << 32), prod).to(torch.int32)
+
+
+def default_scale(q: torch.Tensor) -> float:
+    """1/sqrt(d) as the reference's oracle takes it when no scale is
+    given: sqrt(d) rounded to q's dtype, and the quotient too."""
+    root = torch.tensor(float(q.shape[-1])).sqrt().to(q.dtype)
+    return float(1.0 / root)
+
+
+def decode_attention_ref(q, k, v, scale=None, length=None, cap=None):
+    """GQA decode attention, as `repro.kernels.ref.decode_attention_ref`.
+
+    q: [B, Hkv, G, d]  (one new token; G query heads per kv head)
+    k: [B, Hkv, S, d]; v: [B, Hkv, S, dv]
+    length: optional [B] valid KV length (positions >= length masked out)
+    cap: optional logit softcap, cap * tanh(s / cap)
+    Returns [B, Hkv, G, dv] in q's dtype; the softmax is float32.
+    """
+    if scale is None:
+        scale = default_scale(q)
+    scores = torch.einsum("bhgd,bhsd->bhgs", q.float(), k.float()) * scale
+    if cap is not None:
+        scores = cap * torch.tanh(scores / cap)
+    if length is not None:
+        pos = torch.arange(k.shape[2], device=k.device)
+        mask = pos[None, :] < length.to(k.device)[:, None]      # [B, S]
+        scores = torch.where(mask[:, None, None, :], scores, -torch.inf)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgs,bhsd->bhgd", w, v.float())
+    return out.to(q.dtype)

@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.alloc import alloc_rounds_cuda, alloc_rounds_ref
+from repro_torch.kernels.attn_decode import (decode_attention_cuda,
+                                             decode_attention_ref)
 from repro_torch.kernels.minplus import minplus_cuda, minplus_ref
 from repro_torch.kernels.ugal import ugal_select_cuda, ugal_select_ref
 
@@ -97,6 +99,38 @@ def _ugal_inputs(seed, E, C):
 
 
 UGAL_CASES = [(0, 700, 4), (1, 513, 1), (2, 256, 7), (3, 1, 4)]
+
+
+def _decode_inputs(B, Hkv, G, d, S, seed, lengths=None):
+    """q [B, Hkv, G, d], k and v [B, Hkv, S, d] standard normal (float32)
+    and valid lengths in [1, S] (drawn unless given)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Hkv, G, d), dtype=np.float32)
+    k = rng.standard_normal((B, Hkv, S, d), dtype=np.float32)
+    v = rng.standard_normal((B, Hkv, S, d), dtype=np.float32)
+    if lengths is None:
+        lengths = rng.integers(1, S + 1, B)
+    return q, k, v, np.asarray(lengths, dtype=np.int32)
+
+
+# (B, Hkv, G, d, S, cap, lengths): gemma2-2b's global and local layers
+# at the serving shape (ragged rows, one of length 1), h2o-danube-1.8b's
+# head dim 80, the reference kernel test's four shapes, and S that is
+# not a multiple of the 32-position tile
+DECODE_CASES = [
+    (4, 4, 2, 256, 8192, 50.0, (1, 4096, 4500, 8192)),
+    (4, 4, 2, 256, 4096, 50.0, (1, 2049, 4096, 4096)),
+    (2, 8, 4, 80, 4096, None, (4096, 77)),
+    (1, 1, 1, 32, 64, None, None),
+    (2, 4, 7, 64, 300, None, None),
+    (1, 2, 8, 128, 1024, None, None),
+    (3, 1, 16, 80, 129, None, None),
+    (2, 3, 2, 256, 1000, 50.0, (999, 1000)),
+]
+# (atol, rtol), as chip_smoke.py holds the kernel: float32 sums in
+# another order; bfloat16 one output rounding (at most one step, 2**-7 of
+# the value), with an atol well below |out| of a long row (~0.015)
+DECODE_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-3, 8e-3)}
 
 
 @pytest.fixture
@@ -194,3 +228,90 @@ def test_closed_loop_kernel_path_matches_plain_path(cuda_device, placement):
               "per_cycle_delivered"):
         np.testing.assert_array_equal(getattr(runs[0], f),
                                       getattr(runs[1], f), err_msg=f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(DECODE_CASES)))
+def test_decode_attention_cuda_matches_plain(cuda_device, case, dtype):
+    B, Hkv, G, d, S, cap, lengths = DECODE_CASES[case]
+    q, k, v, ln = _decode_inputs(B, Hkv, G, d, S, seed=case,
+                                 lengths=lengths)
+    qt, kt, vt = (torch.from_numpy(x).to(cuda_device, dtype)
+                  for x in (q, k, v))
+    lt = torch.from_numpy(ln).to(cuda_device)
+    scale = 1.0 / d ** 0.5
+    before = decode_attention_cuda.launches
+    got = decode_attention_cuda(qt, kt, vt, scale=scale, length=lt, cap=cap)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, Hkv, G, d)
+    want = decode_attention_ref(qt, kt, vt, scale=scale, length=lt, cap=cap)
+    atol, rtol = DECODE_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+def test_decode_attention_cuda_mixed_dtypes(cuda_device, q_dtype, kv_dtype):
+    """q in the activations' type, K/V in the cache's (ServingEngine's
+    `dtype`): the output takes q's type."""
+    q, k, v, ln = _decode_inputs(4, 4, 2, 256, 4096, seed=11,
+                                 lengths=(1, 2049, 4096, 4096))
+    qt = torch.from_numpy(q).to(cuda_device, q_dtype)
+    kt, vt = (torch.from_numpy(x).to(cuda_device, kv_dtype) for x in (k, v))
+    lt = torch.from_numpy(ln).to(cuda_device)
+    got = decode_attention_cuda(qt, kt, vt, length=lt, cap=50.0)
+    want = decode_attention_ref(qt, kt, vt, length=lt, cap=50.0)
+    torch.cuda.synchronize()
+    assert got.dtype == q_dtype
+    atol, rtol = DECODE_TOL[q_dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+def test_decode_attention_cuda_ignores_positions_past_length(cuda_device):
+    """Garbage (and NaN) beyond `length` never reaches the output: those
+    positions are not read, and splits without a valid one weigh 0."""
+    q, k, v, ln = _decode_inputs(2, 2, 4, 128, 3000, seed=9,
+                                 lengths=(1, 1700))
+    qt, kt, vt = (torch.from_numpy(x).to(cuda_device) for x in (q, k, v))
+    lt = torch.from_numpy(ln).to(cuda_device)
+    out1 = decode_attention_cuda(qt, kt, vt, length=lt, cap=50.0)
+    kt[0, :, 1:] = float("nan")
+    vt[0, :, 1:] = float("nan")
+    kt[1, :, 1700:] = 1e3
+    vt[1, :, 1700:] = -1e3
+    out2 = decode_attention_cuda(qt, kt, vt, length=lt, cap=50.0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out2).all()
+    torch.testing.assert_close(out1, out2, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_serving_kernel_path_matches_plain_path(cuda_device):
+    """Reduced gemma2-2b served on the card through the decode kernel and
+    through its plain version: the same greedy tokens, 26 x steps ->
+    n_layers x steps launches."""
+    from repro_torch.configs import get, reduced
+    from repro_torch.models.model import numpy_params, params_from_numpy
+    from repro_torch.serving import Request, ServingEngine
+    cfg = reduced(get("gemma2-2b"))
+    params = params_from_numpy(numpy_params(cfg, 0), cfg, cuda_device)
+    outs = []
+    for path in ("cuda", "ref"):
+        rng = np.random.default_rng(2)
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, 5 + 9 * i),
+                        max_new_tokens=6 + i) for i in range(4)]
+        eng = ServingEngine(params, cfg, batch_slots=2, max_len=64,
+                            device=cuda_device, kernel_path=path)
+        before = decode_attention_cuda.launches
+        done = eng.run(reqs)
+        launched = decode_attention_cuda.launches - before
+        outs.append(sorted((r.rid, r.out_tokens) for r in done))
+        assert launched % cfg.n_layers == 0
+        assert (launched > 0) == (path == "cuda")
+    assert outs[0] == outs[1]

@@ -13,19 +13,18 @@ cycles of uniform traffic at `--rate` (default 0.5) under `--mode`
 warm up, again to time it, then under `torch.profiler` (CPU and CUDA
 activities), and prints one JSON line: wall time per cycle, device busy
 time per cycle (sum of kernel times) and the device's idle share,
-kernel launches per cycle, and the kernels with the most device time.
-Needs a CUDA device.
+kernel launches per cycle, and the kernels with the most device time
+(`tools/torch_profile.py`).  Needs a CUDA device.
 """
 
 import argparse
 import json
 import os
-import subprocess
 import sys
-import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "src"))
+from torch_profile import profile_run  # noqa: E402  (tools/, beside this file)
 
 
 def main() -> int:
@@ -38,8 +37,6 @@ def main() -> int:
     args = ap.parse_args()
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -68,54 +65,9 @@ def main() -> int:
         def run():
             run_workload(tables, wl, cfg)
     run()                                            # warm-up (kernel build)
-    torch.cuda.synchronize()
-
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    wall_plain = time.perf_counter() - t0
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_prof = time.perf_counter() - t0
-
-    rows = []
-    busy_us = 0.0
-    launches = 0
-    under_ops_us = sum(ev.self_device_time_total for ev in prof.key_averages()
-                       if ev.device_type == DeviceType.CPU)
-    for ev in prof.key_averages():
-        # device-side rows only (kernels, memcpy, memset): the host-side
-        # operator rows carry the same device time again
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        dev_us = ev.self_device_time_total
-        if dev_us <= 0:
-            continue
-        busy_us += dev_us
-        launches += ev.count
-        rows.append((dev_us, ev.count, ev.key))
-    rows.sort(reverse=True)
-    n = args.cycles
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    print(json.dumps({
-        "card": smi, "q": args.q, **what, "cycles": n,
-        "wall_ms_per_cycle": 1e3 * wall_plain / n,
-        "wall_ms_per_cycle_profiled": 1e3 * wall_prof / n,
-        "device_busy_ms_per_cycle": busy_us / 1e3 / n,
-        "device_idle_share": 1.0 - (busy_us / 1e6) / wall_prof,
-        "device_ms_per_cycle_under_host_ops": under_ops_us / 1e3 / n,
-        "device_ops_per_cycle": launches / n,
-        "top": [{"name": k[:80], "calls_per_cycle": c / n,
-                 "device_us_per_cycle": d / n,
-                 "share_of_busy": d / busy_us}
-                for d, c, k in rows[:15]],
-    }), flush=True)
+    summary, _ = profile_run(run, args.cycles, "cycle")
+    print(json.dumps({"q": args.q, **what, "cycles": args.cycles,
+                      **summary}), flush=True)
     return 0
 
 
