@@ -30,7 +30,9 @@ Phases, one JSON line each; any failure exits non-zero:
 7. alloc_rounds: the allocation kernel against its plain version on
    request arrays captured from short q=19 closed-loop (W=4) and
    open-loop (W=6) runs and on random arrays that respect the contract
-   -- exact equality of all five outputs, times, bound;
+   -- exact equality of all five outputs, times, bound and the share of
+   it reached (bound_share) at W=4 and W=6 (the timing loop reuses ~8 MB
+   of inputs that sit in the 50 MB L2, so a share above 1 can occur);
 8. ugal_select: the UGAL kernel against its plain version on arrays
    captured from a short q=19 UGAL-L run and on random contracts at
    E = 10,830 with C in {1, 4, 7} (dead paths, forced ties, overflowing
@@ -47,12 +49,17 @@ Phases, one JSON line each; any failure exits non-zero:
     array equal;
 12. attn_decode: the decode-attention kernel against its plain version
     at gemma2-2b's global (S = 8192) and local (S = 4096) layer shapes
-    with cap 50 and ragged lengths, h2o-danube-1.8b's head dim 80, the
-    reference kernel test's four shapes and an S off the tile, each with
-    float32 and bfloat16 inputs, within a stated tolerance; the kernel's,
-    the plain version's and scaled_dot_product_attention's times (cap
-    None: no PyTorch call computes the capped function) beside the byte
-    bound;
+    with cap 50 and ragged lengths, the serve profile's rows (4500, 2049,
+    1024, 300 at S = 8192), 256 heads of length-1 rows beside one full
+    row, h2o-danube-1.8b's head dim 80, the reference kernel test's four
+    shapes, an S off the tile and a head dim of 33 (rows that are not
+    16-byte multiples: the block-copy path), each with float32 and
+    bfloat16 inputs,
+    within a stated tolerance; the kernel's, the plain version's and
+    scaled_dot_product_attention's times (cap None: no PyTorch call
+    computes the capped function) beside the byte bound and the share of
+    it reached (bound_share), for full, ragged and serve-profile rows in
+    float32 and full rows in bfloat16;
 13. serve (the serving slice's main path, at full width): gemma2-2b with
     random weights from a seeded generator on the card, float32, a
     ServingEngine of 4 slots and max_len 8192 serving 6 requests (prompts
@@ -73,7 +80,9 @@ Then a line {"kernels": [...]} with each kernel's launches on its main
 path (the open loop's for the simulator's three kernels, the serve
 phase's for decode attention), its largest difference from the plain
 version, its time, the plain version's time, its bound and what bounds
-it, and the library call's time where one exists; and the last line
+it, and the library call's time where one exists (decode attention
+also in bfloat16 and at the serve profile's rows; allocation also at
+W=4); and the last line
 {"ok": true, "device": {...}}.  Without CUDA, or without the repository
 around it, it fails before printing any result.
 """
@@ -133,6 +142,8 @@ WORSTCASE_CFG = dict(injection_rate=0.2, cycles=1500, warmup=500,
                      lookahead=6, mode="ugal_l", seed=0)
 UNREACH, BIG_I = 1 << 14, 1 << 30
 
+# the global layer's valid rows in the serve profile's decode step
+SERVE_ROWS = (4500, 2049, 1024, 300)
 # Phase 12's cases: (name, B, Hkv, G, d, S, cap, lengths or None = drawn)
 DECODE_CASES = [
     ("gemma2_global", 4, 4, 2, 256, 8192, 50.0, (1, 4096, 4500, 8192)),
@@ -143,6 +154,9 @@ DECODE_CASES = [
     ("ref_aligned", 1, 2, 8, 128, 1024, None, None),
     ("ref_d80_g16", 3, 1, 16, 80, 129, None, None),
     ("off_tile", 2, 3, 2, 256, 1000, 50.0, (999, 1000)),
+    ("serve_lengths", 4, 4, 2, 256, 8192, 50.0, SERVE_ROWS),
+    ("short_heads", 32, 8, 2, 128, 2048, 50.0, (1,) * 31 + (2048,)),
+    ("odd_d", 2, 2, 3, 33, 200, 50.0, (199, 77)),
 ]
 # (atol, rtol).  float32: the same sums in another order.  bfloat16: the
 # float32 result rounded once, which may land one bfloat16 step (at most
@@ -373,9 +387,9 @@ def attn_decode_phase(dev, report) -> None:
     """Phase 12: the decode-attention kernel against its plain version,
     and its times; fills report["decode_attention"]."""
     import torch
+    from repro_torch.kernels import attn_decode
     from repro_torch.kernels.attn_decode import (decode_attention_cuda,
-                                                 decode_attention_ref,
-                                                 split_plan)
+                                                 decode_attention_ref)
 
     t0 = time.perf_counter()
     err = {"float32": 0.0, "bfloat16": 0.0}
@@ -420,12 +434,12 @@ def attn_decode_phase(dev, report) -> None:
                     - decode_attention_cuda(q, k, v, scale=scale, length=ln)
                     .float()).abs().max().item()
         bound_ms, nbytes, flops = decode_bound(q, k, ln)
+        bf = int(dt == torch.bfloat16)
+        n_blocks = attn_decode.grid_blocks(dev, G, d, bf, bf)
         return dict(shape=[B, Hkv, G, d, S], lengths=list(lengths),
                     dtype=str(dt).replace("torch.", ""), cap=cap,
-                    n_split=split_plan(B * Hkv, S, torch.cuda.
-                                       get_device_properties(0).
-                                       multi_processor_count)[0],
-                    ms=ms, plain_ms=plain, library_ms=lib_ms,
+                    n_blocks=n_blocks, ms=ms, plain_ms=plain,
+                    library_ms=lib_ms,
                     library_max_abs_diff_no_cap=lib_diff,
                     bound_ms=bound_ms, bytes=nbytes, flops=flops,
                     bound_share=bound_ms / ms)
@@ -439,12 +453,19 @@ def attn_decode_phase(dev, report) -> None:
                                        torch.float32),
         "global_full_bf16": decode_times(4, 4, 2, 256, 8192, (8192,) * 4,
                                          torch.bfloat16),
+        # the serving profile's rows (tools/profile_torch_serve.py)
+        "serve_lengths_f32": decode_times(4, 4, 2, 256, 8192, SERVE_ROWS,
+                                          torch.float32),
     }
-    main_t = dtimes["global_full_f32"]
+    main_t, bf_t = dtimes["global_full_f32"], dtimes["global_full_bf16"]
     report["decode_attention"] = dict(
         max_abs_err=err["float32"], max_abs_err_bf16=err["bfloat16"],
         ms=main_t["ms"], plain_ms=main_t["plain_ms"],
-        bound_ms=main_t["bound_ms"], library_ms=main_t["library_ms"])
+        bound_ms=main_t["bound_ms"], library_ms=main_t["library_ms"],
+        ms_bf16=bf_t["ms"], bound_ms_bf16=bf_t["bound_ms"],
+        library_ms_bf16=bf_t["library_ms"],
+        ms_serve_lengths=dtimes["serve_lengths_f32"]["ms"],
+        bound_ms_serve_lengths=dtimes["serve_lengths_f32"]["bound_ms"])
     emit({"phase": "attn_decode", "cases": checked, "tolerance": DECODE_TOL,
           "max_abs_err": err, "times": dtimes,
           "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa)"
@@ -808,8 +829,9 @@ def main() -> int:
                            arrays[0].shape[2], arrays[4].shape[1], kw["P"])
         nbytes = 4 * (N * (3 * PV * W + PV + 3 * PE * W + PE + 1)
                       + N * (2 * PV + 2 * PE + P))
-        return dict(ms=ms, plain_ms=plain,
-                    bound_ms=1e3 * nbytes / PEAK_BYTES_S, bytes=nbytes,
+        bound_ms = 1e3 * nbytes / PEAK_BYTES_S
+        return dict(ms=ms, plain_ms=plain, bound_ms=bound_ms,
+                    bound_share=bound_ms / ms, bytes=nbytes,
                     shape={"N": N, "PV": PV, "PE": PE, "W": W,
                            "K": PV + PE, "R": kw["R"]})
     w4 = alloc_times(cases[1])                 # closed loop, cycle 60
@@ -819,8 +841,9 @@ def main() -> int:
     # launches it counts; the closed loop's W=4 figures ride beside
     report["alloc_rounds"] = dict(
         max_abs_err=err, ms=w6["ms"], plain_ms=w6["plain_ms"],
-        bound_ms=w6["bound_ms"], ms_w4=w4["ms"], plain_ms_w4=w4["plain_ms"],
-        bound_ms_w4=w4["bound_ms"])
+        bound_ms=w6["bound_ms"], bound_share=w6["bound_share"],
+        ms_w4=w4["ms"], plain_ms_w4=w4["plain_ms"],
+        bound_ms_w4=w4["bound_ms"], bound_share_w4=w4["bound_share"])
     emit({"phase": "alloc_rounds", "equal": True, "cases": len(cases),
           "captured_cycles": [c for c, _, _ in captured],
           "w4": w4, "w6": w6})

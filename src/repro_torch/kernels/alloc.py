@@ -1,7 +1,9 @@
 """W-round switch allocation: the CUDA kernel's wrapper and launch count.
 
-`alloc_rounds_cuda` launches `csrc/alloc.cu`, which replaces the Pallas
-TPU kernel `repro.kernels.alloc.alloc_rounds_pallas`; `alloc_rounds_ref`
+`alloc_rounds_cuda` launches `csrc/alloc.cu` (one warp per router, the
+W slots staged in registers before the rounds, one instantiation per W
+in 1..8), which replaces the Pallas TPU kernel
+`repro.kernels.alloc.alloc_rounds_pallas`; `alloc_rounds_ref`
 is its plain PyTorch version (`repro_torch.kernels.ref`), which runs for
 CPU tensors.  The lane axis of the reference's dispatcher (vmap over
 sweeps) is not part of this port yet: every array is single-lane.
@@ -16,7 +18,9 @@ import torch
 from ._cuda import check_cuda_tensor, launch_function, use_kernel
 from .ref import KSHIFT, alloc_rounds_ref
 
-__all__ = ["alloc_rounds", "alloc_rounds_cuda", "alloc_rounds_ref"]
+__all__ = ["WINDOWS", "alloc_rounds", "alloc_rounds_cuda",
+           "alloc_rounds_ref"]
+WINDOWS = tuple(range(1, 9))    # the kernel's instantiated W (csrc)
 # cycle, 9 input and 5 output pointers, N W P V PE p_budget NQ R, stream
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
              + [ctypes.c_void_p])
@@ -27,10 +31,14 @@ def alloc_rounds_cuda(cycle: int, out_net, ej_net, space_net, count_net,
                       *, W: int, P: int, V: int, PE: int, p_budget: int,
                       NQ: int, R: int):
     """The allocation kernel on the card; same contract as
-    `alloc_rounds_ref`.  Raises for a tensor off the card, of the wrong
-    dtype, shape or layout, or for a failed launch."""
+    `alloc_rounds_ref`, with W in WINDOWS.  Raises for another W, for a
+    tensor off the card, of the wrong dtype, shape or layout, or for a
+    failed launch."""
     N = count_net.shape[0]
     PV = P * V
+    if W not in WINDOWS:
+        raise ValueError(f"alloc_rounds_cuda: W = {W} has no instantiation "
+                         f"(one per W in {WINDOWS[0]}..{WINDOWS[-1]})")
     if PV + PE >= KSHIFT:
         raise ValueError(f"alloc_rounds_cuda: K = {PV + PE} >= {KSHIFT}")
     # every priority term must be non-negative and fit int32 (true

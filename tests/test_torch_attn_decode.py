@@ -3,8 +3,8 @@ decode_attention_ref` and the `ops.decode_attention` dispatcher, on the
 CPU) held against the LIVE reference: the Pallas kernel in interpret mode
 (`repro.kernels.decode_attention(..., use_pallas=True)`) and the jnp
 oracle (`repro.kernels.ref.decode_attention_ref`), on the same numpy
-inputs; plus the CUDA wrapper's refusals and split plan, which need no
-card.  The kernel itself is held against the plain version on the card
+inputs; plus the CUDA wrapper's refusals and the kernel's work plan,
+which need no card.  The kernel itself is held against the plain version on the card
 (tests/test_torch_cuda.py, chip_smoke.py)."""
 
 import jax.numpy as jnp
@@ -17,7 +17,8 @@ from repro.kernels.ref import decode_attention_ref as jax_decode_ref
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.attn_decode import (MAX_D, MAX_G, TILE,
                                              decode_attention_cuda,
-                                             split_plan)
+                                             n_partials, segment_slots,
+                                             work_plan)
 from repro_torch.kernels.ops import decode_attention
 from repro_torch.kernels.ref import decode_attention_ref
 
@@ -137,13 +138,52 @@ def test_kernel_refuses_shapes_and_dtypes_outside_its_limits(G, d, dtype):
         decode_attention_cuda(q, kv, kv)
 
 
-@pytest.mark.parametrize("bh,S", [(16, 8192), (16, 4096), (16, 5), (1, 64),
-                                  (3, 129), (264, 8192), (1000, 1000)])
-def test_split_plan_covers_the_cache_in_whole_tiles(bh, S):
-    n_split, chunk = split_plan(bh, S, n_sms=132)
-    assert chunk % TILE == 0 and n_split >= 1
-    assert (n_split - 1) * chunk < S <= n_split * chunk   # no empty split
-    if chunk > TILE:          # cut as fine as whole tiles allow
-        assert bh * n_split <= max(bh, 2 * 2 * 132)
-    if (bh, S) == (16, 8192):
-        assert (n_split, chunk) == (16, 512)
+# (lengths, Hkv, n_blocks): the serving step's rows on 132 and 264
+# blocks, every row full at the global and local shapes, rows of length
+# 1 on 256 heads (fewer tiles than blocks), one full row among short
+# ones, a single tile, lengths off the tile, more blocks than tiles
+PLAN_CASES = [
+    ((4500, 2049, 1024, 300), 4, 132),
+    ((4500, 2049, 1024, 300), 4, 264),
+    ((8192,) * 4, 4, 132),
+    ((4096,) * 4, 4, 264),
+    ((1,) * 32, 8, 264),
+    ((1,) * 31 + (2048,), 8, 132),
+    ((1,), 1, 132),
+    ((33, 31, 65, 999), 3, 7),
+    ((300,), 2, 1000),
+]
+
+
+@pytest.mark.parametrize("lengths,Hkv,n_blocks", PLAN_CASES)
+def test_work_plan_covers_every_valid_tile_once(lengths, Hkv, n_blocks):
+    """The kernel's partition: every valid tile of every (b, kv head) in
+    exactly one block's share, shares within one tile of each other,
+    distinct workspace slots below `n_partials` (sized with every row
+    full, so for any lengths), and the merge's lookup finds exactly the
+    pieces that were written."""
+    plan = work_plan(lengths, Hkv, n_blocks)
+    assert len(plan) == n_blocks
+    seg_tiles = [-(-n // TILE) for n in lengths for _ in range(Hkv)]
+    total = sum(seg_tiles)
+    covered = [[0] * n for n in seg_tiles]
+    slots = {}
+    for j, pieces in enumerate(plan):
+        share = sum(t1 - t0 for _, t0, t1, _ in pieces)
+        assert share <= -(-total // n_blocks) + 1
+        assert share >= total // n_blocks
+        for seg, t0, t1, slot in pieces:
+            assert 0 <= t0 < t1 <= seg_tiles[seg]
+            for t in range(t0, t1):
+                covered[seg][t] += 1
+            assert slot == seg + j and slot not in slots
+            slots[slot] = seg
+    assert all(c == 1 for row in covered for c in row)
+    full = n_partials(len(lengths) * Hkv, n_blocks)
+    assert max(slots) < full
+    # every row full is the most pieces there can be, and still fits
+    worst = work_plan([TILE * 256] * len(lengths), Hkv, n_blocks)
+    assert max(p[3] for ps in worst for p in ps) < full
+    for seg in range(len(seg_tiles)):
+        assert segment_slots(lengths, Hkv, n_blocks, seg) == sorted(
+            k for k, v in slots.items() if v == seg)

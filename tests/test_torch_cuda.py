@@ -39,14 +39,16 @@ MINPLUS_SHAPES = [(1, 8, 8, 8), (3, 30, 51, 13), (2, 130, 140, 129),
                   (1, 37, 300, 5)]
 
 
-def _alloc_inputs(seed, N=13, P=5, V=2, PE=3, W=4, cycle=199_999):
+def _alloc_inputs(seed, N=13, P=5, V=2, PE=3, W=4, cycle=199_999,
+                  p_has=0.75):
     """Random request arrays that respect the allocation contract: dead
     ports have depth 0 on every VC; routers without endpoints (epr = -1)
-    have depth-0 source queues; endpoint-block ids are a permutation."""
+    have depth-0 source queues; endpoint-block ids are a permutation.
+    A router has endpoints with probability `p_has` (router 0 always)."""
     rng = np.random.default_rng(seed)
     PV = P * V
     epr = np.full(N, -1, dtype=np.int32)
-    has = rng.random(N) < 0.75
+    has = rng.random(N) < p_has
     has[0] = True
     epr[has] = rng.permutation(int(has.sum()))
     n_ep = int(has.sum()) * PE
@@ -164,6 +166,55 @@ def test_alloc_cuda_matches_plain(cuda_device, seed, cycle):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
+def _alloc_matches_plain(device, cycle, arrs, kw):
+    ts = [torch.from_numpy(v).to(device) for v in arrs.values()]
+    before = alloc_rounds_cuda.launches
+    got = alloc_rounds_cuda(cycle, *ts, **kw)
+    want = alloc_rounds_ref(cycle, *ts, **kw)
+    torch.cuda.synchronize()
+    assert alloc_rounds_cuda.launches == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", range(1, 9))
+def test_alloc_cuda_matches_plain_at_every_window(cuda_device, W):
+    """Each instantiated W (1..8), at q=19's router shape (P=29, V=4,
+    PE=15: K = 131, five requests per lane)."""
+    cycle, arrs, kw = _alloc_inputs(20 + W, N=97, P=29, V=4, PE=15, W=W,
+                                    cycle=7919 + W)
+    want = _alloc_matches_plain(cuda_device, cycle, arrs, kw)
+    assert int((want[0] >= 0).sum()) > 0 and int((want[1] >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cycle", [17, 199_999])
+def test_alloc_cuda_matches_plain_at_q25_shape(cuda_device, cycle):
+    """q=25's shape: N = 1250 routers, P = 37 ports (a `taken` mask wider
+    than 32 bits), V = 4, PE = 19 (K = 167, six requests per lane), every
+    router with endpoints (R = 208,750), at the cycle limit too."""
+    cycle, arrs, kw = _alloc_inputs(25, N=1250, P=37, V=4, PE=19, W=6,
+                                    cycle=cycle, p_has=1.0)
+    assert kw["R"] == 208_750
+    want = _alloc_matches_plain(cuda_device, cycle, arrs, kw)
+    # ports above 31 win too, so the mask's upper word is exercised
+    assert int((want[4][:, 32:] >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [0, 9])
+def test_alloc_cuda_refuses_an_uninstantiated_window(cuda_device, W):
+    cycle, arrs, kw = _alloc_inputs(3, W=max(W, 1))
+    ts = [torch.from_numpy(v).to(cuda_device) for v in arrs.values()]
+    kw["W"] = W
+    before = alloc_rounds_cuda.launches
+    with pytest.raises(ValueError, match="W"):
+        alloc_rounds_cuda(cycle, *ts, **kw)
+    assert alloc_rounds_cuda.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("ugal_g", [False, True])
 @pytest.mark.parametrize("seed,E,C", UGAL_CASES + [(4, 10_830, 4)])
@@ -247,6 +298,71 @@ def test_decode_attention_cuda_matches_plain(cuda_device, case, dtype):
     assert decode_attention_cuda.launches == before + 1
     assert got.dtype == dtype and got.shape == (B, Hkv, G, d)
     want = decode_attention_ref(qt, kt, vt, scale=scale, length=lt, cap=cap)
+    atol, rtol = DECODE_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+def _decode_matches_plain(device, dtype, B, Hkv, G, d, S, cap, lengths,
+                          seed):
+    q, k, v, ln = _decode_inputs(B, Hkv, G, d, S, seed=seed, lengths=lengths)
+    qt, kt, vt = (torch.from_numpy(x).to(device, dtype) for x in (q, k, v))
+    lt = torch.from_numpy(ln).to(device)
+    got = decode_attention_cuda(qt, kt, vt, length=lt, cap=cap)
+    want = decode_attention_ref(qt, kt, vt, length=lt, cap=cap)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    atol, rtol = DECODE_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths", ["all_one", "one_full"])
+def test_decode_attention_cuda_many_short_heads(cuda_device, lengths,
+                                                 dtype):
+    """B = 32, Hkv = 8: 256 segments of one tile each when every row has
+    length 1, so one block's share spans several heads and a head has a
+    single partial; with one full row, that row's 64 tiles span blocks
+    while the short heads share theirs."""
+    lens = [1] * 32 if lengths == "all_one" else [1] * 31 + [2048]
+    _decode_matches_plain(cuda_device, dtype, 32, 8, 2, 128, 2048, 50.0,
+                          lens, seed=31)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_cuda_serve_lengths(cuda_device, dtype):
+    """The serving profile's rows: gemma2-2b's global layer (S = 8192)
+    after prompts of 4500, 2049, 1024 and 300 tokens, cap 50."""
+    _decode_matches_plain(cuda_device, dtype, 4, 4, 2, 256, 8192, 50.0,
+                          (4500, 2049, 1024, 300), seed=45)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["odd_d", "misaligned"])
+def test_decode_attention_cuda_block_copy_path(cuda_device, layout, dtype):
+    """Rows whose bytes are not a multiple of 16 (d = 33), and K/V that
+    start 4 or 2 bytes past a 16-byte boundary, take the path where the
+    block copies each tile into zero-padded rows instead of TMA."""
+    B, Hkv, G, d, S = (2, 2, 3, 33, 200) if layout == "odd_d" else (
+        2, 2, 2, 64, 300)
+    q, k, v, ln = _decode_inputs(B, Hkv, G, d, S, seed=17, lengths=(S - 1, 77))
+    qt = torch.from_numpy(q).to(cuda_device, dtype)
+    kv = []
+    for x in (k, v):
+        t = torch.from_numpy(x).to(cuda_device, dtype)
+        if layout == "misaligned":        # same values, one element over
+            buf = torch.empty(t.numel() + 1, dtype=dtype, device=cuda_device)
+            t = buf[1:].view(t.shape).copy_(t)
+            assert t.is_contiguous() and t.data_ptr() % 16 != 0
+        kv.append(t)
+    lt = torch.from_numpy(ln).to(cuda_device)
+    got = decode_attention_cuda(qt, *kv, length=lt, cap=50.0)
+    want = decode_attention_ref(qt, *kv, length=lt, cap=50.0)
+    torch.cuda.synchronize()
     atol, rtol = DECODE_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)

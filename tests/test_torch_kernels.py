@@ -18,7 +18,8 @@ from repro.kernels.minplus import minplus_pallas
 from repro.kernels.ref import alloc_rounds_ref as jax_alloc_rounds_ref
 from repro.kernels.ref import minplus_ref as jax_minplus_ref
 from repro_torch.kernels import apsp, launch_counts, reset_launch_counts
-from repro_torch.kernels.alloc import alloc_rounds, alloc_rounds_ref
+from repro_torch.kernels.alloc import (alloc_rounds, alloc_rounds_cuda,
+                                       alloc_rounds_ref)
 from repro_torch.kernels.minplus import minplus, minplus_ref
 from test_torch_cuda import (ALLOC_CASES, BIG, MINPLUS_SHAPES,
                              _alloc_inputs, _minplus_inputs)
@@ -81,6 +82,28 @@ def test_alloc_plain_matches_pallas_and_ref(seed, cycle):
     # some grants of every kind happen, so the comparison has teeth
     assert (got[0] >= 0).any() and (got[1] >= 0).any()
     assert (got[4] >= 0).any()
+
+
+@pytest.mark.parametrize("W", range(1, 9))
+def test_alloc_plain_matches_ref_at_every_window(W):
+    """The plain version against the reference's oracle at each W the
+    kernel instantiates, at q=19's router shape (K = 131)."""
+    cycle, arrs, kw = _alloc_inputs(20 + W, N=9, P=29, V=4, PE=15, W=W,
+                                    cycle=7919 + W)
+    j = {k: jnp.asarray(v) for k, v in arrs.items()}
+    want = jax_alloc_rounds_ref(jnp.int32(cycle), **j, **kw)
+    got = alloc_rounds_ref(cycle, *(torch.from_numpy(v)
+                                    for v in arrs.values()), **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("W", [0, 9])
+def test_alloc_kernel_refuses_an_uninstantiated_window(W):
+    cycle, arrs, kw = _alloc_inputs(3)
+    with pytest.raises(ValueError, match="no instantiation"):
+        alloc_rounds_cuda(cycle, *(torch.from_numpy(v)
+                                   for v in arrs.values()), **dict(kw, W=W))
 
 
 def test_cpu_tensor_never_launches_a_kernel():

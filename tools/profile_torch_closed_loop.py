@@ -65,7 +65,7 @@ def main() -> int:
         def run():
             run_workload(tables, wl, cfg)
     run()                                            # warm-up (kernel build)
-    summary, _ = profile_run(run, args.cycles, "cycle")
+    summary, _, _ = profile_run(run, args.cycles, "cycle")
     print(json.dumps({"q": args.q, **what, "cycles": args.cycles,
                       **summary}), flush=True)
     return 0
