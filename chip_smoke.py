@@ -6,12 +6,16 @@
 Phases, one JSON line each; any failure exits non-zero:
 
 1. device: the card's name, its power limit and clocks (nvidia-smi);
-2. build: the four CUDA kernels compiled from
+2. build: the four CUDA sources compiled from
    `src/repro_torch/kernels/csrc` (one nvcc per source, all started
-   together), with ptxas's resource report;
+   together), with ptxas's resource report and the min-plus kernel's
+   SASS opcode counts (cuobjdump);
 3. min-plus kernel against its plain version on the card: the q=19
-   seeded distance matrix squared, and ragged batched inputs -- exact
-   equality, kernel and plain times, bound;
+   seeded distance matrix squared, ragged batched inputs, one element,
+   K = 1, M K N off the tile (3x129x722x65), eight q=19 squarings in one
+   batch, and floats of both signs with -0.0, +inf and +-3e38 -- exact
+   equality, kernel and plain times, the batched time per squaring,
+   bounds, and the measured issue rates of FADD, FMNMX and the pair;
 4. main_path (closed loop, at full width): Slim Fly MMS q=19 (722
    routers, 10,830 endpoints) -> build_routing (min-plus kernel) ->
    SimTables.build -> run_workload of the 3-D stencil (20,20,27) with
@@ -22,29 +26,39 @@ Phases, one JSON line each; any failure exits non-zero:
    SimTables.build -> make_traffic("uniform") -> simulate with UGAL-L at
    injection rate 0.5 and Fig 6's full-mode settings (3000 cycles, 1000
    warm-up, lookahead 6), seed 0, native random source; flit
-   conservation on every cycle; all three kernels must have launched;
+   conservation on every cycle; min-plus, allocation and the fused
+   UGAL route kernel must have launched, the route kernel once per
+   cycle, the UGAL contract kernel never;
 6. open_loop_held: the open_loop run and a worst-case run (worstcase_sf,
    UGAL-L at 0.2, 1500 cycles, 500 warm-up) held against the
    reference's values (GOLDEN_OPEN): accepted load within 1% relative,
    average latency within 3% relative;
 7. alloc_rounds: the allocation kernel against its plain version on
    request arrays captured from short q=19 closed-loop (W=4) and
-   open-loop (W=6) runs and on random arrays that respect the contract
+   open-loop (W=6) runs (which also captures the UGAL route kernel's
+   inputs at cycles 150 and 250) and on random arrays that respect the
+   contract
    -- exact equality of all five outputs, times, bound and the share of
    it reached (bound_share) at W=4 and W=6 (the timing loop reuses ~8 MB
    of inputs that sit in the 50 MB L2, so a share above 1 can occur);
-8. ugal_select: the UGAL kernel against its plain version on arrays
-   captured from a short q=19 UGAL-L run and on random contracts at
-   E = 10,830 with C in {1, 4, 7} (dead paths, forced ties, overflowing
-   products) and at E = 1 and 257 (not a multiple of the block) --
-   exact equality, times, bound;
+8. ugal: the fused route kernel against its plain version on the
+   captured q=19 cycles, UGAL-L and UGAL-G, C in {1, 4, 7}, with healthy,
+   masked (phase 9's sample, re-converged) and stale (dead ports only)
+   tables, at least one stale read through a dead port; the contract
+   kernel (ugal_select) on the captured cycle's terms and on random
+   contracts at E = 10,830 with C in {1, 4, 7} (dead paths, forced ties,
+   overflowing products) and at E = 1 and 257 -- exact equality; then
+   at q=19 the route kernel's time in both modes, its plain version's,
+   the contract kernel's, an empty kernel's (the launch floor), and
+   the bounds from the bytes these inputs need;
 9. degraded: q=19 with 5% of its links failed (seeded sample, routes
    re-converged), uniform UGAL-G at 0.3 for 1000 cycles: flit
    conservation on every cycle, every packet delivered or in flight;
 10. paths_equal: the closed loop with kernel_path="cuda" and "ref" on
     the card at q=7 (stencil (6,7,14) on 588 ranks): every field equal;
 11. paths_equal_open: the open loop at q=7, val/ugal_l/ugal_g on uniform
-    and worstcase_sf, healthy and with a failure mask, kernel path
+    and worstcase_sf, healthy, with a failure mask and with stale tables
+    (the same mask, dead ports only), kernel path
     against plain path with the same seed: every field and per-cycle
     array equal;
 12. attn_decode: the decode-attention kernel against its plain version
@@ -82,7 +96,8 @@ phase's for decode attention), its largest difference from the plain
 version, its time, the plain version's time, its bound and what bounds
 it, and the library call's time where one exists (decode attention
 also in bfloat16 and at the serve profile's rows; allocation also at
-W=4); and the last line
+W=4; the UGAL row is the fused route kernel's, with the contract
+kernel's time under contract_ms); and the last line
 {"ok": true, "device": {...}}.  Without CUDA, or without the repository
 around it, it fails before printing any result.
 """
@@ -312,6 +327,102 @@ def ugal_contract_inputs(rng, dev, E, C):
                             len_val[tie])
     return [torch.from_numpy(np.ascontiguousarray(a.astype(np.int32))).to(dev)
             for a in (len_min, len_val, occ_min, occ_val)]
+
+
+def minplus_case(rng, shape, signed=False):
+    """Float32 (a, b) of one [B, M, K] x [B, K, N] case on the host: small
+    integer distances with 30% 3e38; or (signed) normals x 100 of both
+    signs with -0.0, +inf and +-3e38 mixed in (never -inf, so no sum is
+    inf - inf), A's row 0 +inf and A's row 1 and B's column 1 -0.0."""
+    import numpy as np
+    Bt, M, K, N = shape
+
+    def mat(r, c):
+        if not signed:
+            x = rng.integers(0, 9, (Bt, r, c)).astype(np.float32)
+            x[rng.random(x.shape) < 0.3] = 3.0e38
+            return x
+        x = (rng.standard_normal((Bt, r, c)) * 100).astype(np.float32)
+        u = rng.random(x.shape)
+        for lo, v in ((0.0, -0.0), (0.05, np.inf), (0.1, 3.0e38),
+                      (0.15, -3.0e38)):
+            x[(u >= lo) & (u < lo + 0.05)] = v
+        return x
+    a, b = mat(M, K), mat(K, N)
+    if signed:
+        a[:, 0, :] = np.inf
+        a[:, 1, :] = -0.0
+        b[:, :, 1] = -0.0
+    return a, b
+
+
+def sass_mix(lib, kernel: str) -> dict:
+    """Opcode counts of one kernel's SASS in a built library
+    (`cuobjdump -sass`), or the reason there are none."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {"error": "cuobjdump not found"}
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120)
+    if out.returncode != 0:
+        return {"error": out.stderr.strip()[-300:]}
+    counts, inside = {}, False
+    op = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        m = op.search(line) if inside else None
+        if m:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
+def stale_reads(src, dst, cands, dist, port_toward, nbr) -> int:
+    """Legs (source, MIN and both Valiant halves after the bumps) of
+    two hops or more whose first hop is a dead port: where UGAL-G's path
+    occupancy reads router -1 wrapped to N - 1."""
+    import torch
+    from repro_torch.kernels.ref import bump_candidates
+    c = bump_candidates(cands, src[:, None], dst[:, None], dist.shape[0])
+    n = 0
+    for s, t in ((src, dst), (src[:, None], c), (c, dst[:, None])):
+        o = port_toward[s, t].long().clamp(min=0)
+        n += int(((dist[s, t] >= 2) & (nbr[s, o] < 0)).sum())
+    return n
+
+
+def ugal_route_bytes(src, dst, cands, dist, port_toward, nbr, ugal_g):
+    """Bytes one ugal_route call must move on these inputs: src_r, dst_r
+    and cands read, inter and phase written, and every table entry its
+    paths gather, counted once per (endpoint, path) -- UGAL-L: dist of
+    MIN and both halves, port_toward of the first hops, occ where the
+    first hop exists; UGAL-G: per leg dist, port_toward, nbr and occ (where
+    the port exists) and, on a leg of 2 hops or more, the second router's
+    port_toward and occ (where it exists)."""
+    import torch
+    from repro_torch.kernels.ref import bump_candidates
+    E, C = cands.shape
+    N = dist.shape[0]
+    c = bump_candidates(cands, src[:, None], dst[:, None], N)
+    nbytes = 4 * (2 * E + E * C) + 8 * E
+    s2, d2 = src[:, None], dst[:, None]
+    if not ugal_g:
+        nbytes += 2 * (E + 2 * E * C) + 2 * (E + E * C)
+        first = (port_toward[src, dst] >= 0).sum() + (
+            port_toward[s2, c] >= 0).sum()
+        return nbytes + 4 * int(first)
+    for s, t in ((src, dst), (s2, c), (c, d2)):
+        o1 = port_toward[s, t].long()
+        m = nbr[s, o1.clamp(min=0)].long()
+        m = torch.where(m < 0, m + N, m)
+        two = dist[s, t] >= 2
+        o2 = port_toward[m, t]
+        nbytes += (8 * o1.numel() + 4 * int((o1 >= 0).sum())
+                   + 2 * int(two.sum()) + 4 * int((two & (o2 >= 0)).sum()))
+    return nbytes
 
 
 def conservation(r) -> bool:
@@ -617,8 +728,12 @@ def main() -> int:
     from repro_torch.core import bfs_all_pairs, build_routing, build_slimfly
     from repro_torch.kernels import _cuda, ops
     from repro_torch.kernels.alloc import alloc_rounds_cuda, alloc_rounds_ref
-    from repro_torch.kernels.minplus import minplus_cuda, minplus_ref
-    from repro_torch.kernels.ugal import ugal_select_cuda, ugal_select_ref
+    from repro_torch.kernels.minplus import (minplus_cuda, minplus_ref,
+                                             probe_rate)
+    from repro_torch.kernels.ref import ugal_path_terms
+    from repro_torch.kernels.ugal import (empty_launch, ugal_route_cuda,
+                                          ugal_route_ref, ugal_select_cuda,
+                                          ugal_select_ref)
     from repro_torch.sim import (SimConfig, SimTables, engine, make_traffic,
                                  simulate)
     from repro_torch.sim.workloads import (WorkloadSimConfig, run_workload,
@@ -650,8 +765,12 @@ def main() -> int:
     ptxas = {k: [ln.strip() for ln in _cuda.build_log(k).splitlines()
                  if "registers" in ln or "spill" in ln]
              for k in sources}
+    # the min-plus kernel's instruction mix (its inner loop is unrolled,
+    # so the function's counts are the loop's FADD / FMNMX / LDS ratio)
+    sass = {"minplus_kernel": sass_mix(_cuda.library_path("minplus"),
+                                       "minplus_kernel")}
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
-          "per_kernel_s": secs, "ptxas": ptxas})
+          "per_kernel_s": secs, "ptxas": ptxas, "sass_opcodes": sass})
 
     report = {}
 
@@ -660,28 +779,55 @@ def main() -> int:
     d0 = ops.seed_distance(topo19.adj, dev)
     err = exact_diff(minplus_cuda(d0, d0), minplus_ref(d0, d0))
     rng = np.random.default_rng(19)
-    a = rng.integers(0, 9, (3, 300, 517)).astype(np.float32)
-    b = rng.integers(0, 9, (3, 517, 129)).astype(np.float32)
-    a[rng.random(a.shape) < 0.3] = 3.0e38
-    b[rng.random(b.shape) < 0.3] = 3.0e38
-    at, bt = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
-    err = max(err, exact_diff(minplus_cuda(at, bt), minplus_ref(at, bt)))
+    # ragged batched, one element, K = 1, M K N off the tile and the
+    # K-chunk, the batched squaring of 8 samples at q=19; then floats of
+    # both signs with -0.0, +inf and +-3e38
+    mp_cases = [((3, 300, 517, 129), False), ((1, 1, 1, 1), False),
+                ((2, 50, 1, 70), False), ((3, 129, 722, 65), False),
+                ((8, 722, 722, 722), False), ((2, 200, 300, 150), True),
+                ((1, 722, 722, 722), True)]
+    for shape, signed in mp_cases:
+        a, b = minplus_case(rng, shape, signed)
+        at, bt = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+        want = minplus_ref(at, bt)
+        err = max(err, exact_diff(minplus_cuda(at, bt), want))
+        if signed:
+            assert bool((want < 0).any()) and bool((want[:, 0] == 3e38).all())
+            assert bool(torch.signbit(want[:, 1, 1]).all())
+        del at, bt, want
     torch.cuda.synchronize()
     n = d0.shape[0]
     mp_ms = time_ms(lambda: minplus_cuda(d0, d0), iters=50)
     mp_plain_ms = time_ms(lambda: minplus_ref(d0, d0), iters=5, warmup=1)
+    d8 = d0.expand(8, n, n).contiguous()
+    mp8_ms = time_ms(lambda: minplus_cuda(d8, d8), iters=20)
+    del d8
     ops_mp = 2 * n ** 3
     bytes_mp = 4 * 3 * n * n
     mp_bound_ms = 1e3 * max(bytes_mp / PEAK_BYTES_S, ops_mp / PEAK_F32_OPS_S)
     # the tighter bound of the header note: FADD and FMNMX take two instruction
     # slots per element on the fp32 lanes at the card's max SM clock
     mp_slot_ms = 1e3 * ops_mp / (SMS * FP32_LANES * sm_max_mhz * 1e6)
+    # issue rates of FADD, FMNMX and the pair: 8 blocks of 256 threads per
+    # SM, 8 chains of 4096 rounds each; thread-instructions per SM per
+    # clock at the max SM clock (a lower bound if the clock ran below it)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rates = {}
+    for mode, kind in ((0, "fadd"), (1, "fmnmx"), (2, "fadd_fmnmx_pair")):
+        ms = time_ms(lambda: probe_rate(mode, 4096, sms * 8, dev), iters=10)
+        instr = sms * 8 * 256 * 8 * 4096 * (2 if mode == 2 else 1)
+        rates[kind] = instr / (ms * 1e-3 * sm_max_mhz * 1e6 * sms)
     report["minplus"] = dict(max_abs_err=err, ms=mp_ms, plain_ms=mp_plain_ms,
-                             bound_ms=mp_bound_ms, slot_bound_ms=mp_slot_ms)
-    emit({"phase": "minplus", "equal": True, "shapes": [[1, n, n, n],
-                                                        [3, 300, 517, 129]],
-          "ms": mp_ms, "plain_ms": mp_plain_ms, "bound_ms": mp_bound_ms,
-          "slot_bound_ms_at_max_clock": mp_slot_ms})
+                             bound_ms=mp_bound_ms, slot_bound_ms=mp_slot_ms,
+                             ms_per_squaring_batched8=mp8_ms / 8)
+    emit({"phase": "minplus", "equal": True,
+          "shapes": [[1, n, n, n]] + [list(c[0]) for c in mp_cases],
+          "signed_shapes": [list(c[0]) for c in mp_cases if c[1]],
+          "ms": mp_ms, "plain_ms": mp_plain_ms,
+          "ms_batched8": mp8_ms, "ms_per_squaring_batched8": mp8_ms / 8,
+          "bound_ms": mp_bound_ms, "slot_bound_ms_at_max_clock": mp_slot_ms,
+          "slot_bound_share": mp_slot_ms / mp_ms,
+          "issue_rate_per_sm_clock_at_max_clock": rates})
 
     # ---- 4. closed-loop main path at full width
     kernels.reset_launch_counts()
@@ -748,8 +894,10 @@ def main() -> int:
     assert conservation(ro), "open loop lost or duplicated flits"
     assert ro.delivered > 0 and np.isfinite(ro.avg_latency)
     assert all(launches_open[k] > 0 for k in
-               ("minplus", "alloc_rounds", "ugal_select")), launches_open
-    assert launches_open["ugal_select"] == OPEN_LOOP_CFG["cycles"]
+               ("minplus", "alloc_rounds", "ugal_route")), launches_open
+    # one fused route launch per cycle; the contract kernel is off the path
+    assert launches_open["ugal_route"] == OPEN_LOOP_CFG["cycles"]
+    assert launches_open["ugal_select"] == 0, launches_open
     assert launches_open["alloc_rounds"] == OPEN_LOOP_CFG["cycles"]
 
     # ---- 6. open-loop runs held against the reference's values
@@ -777,9 +925,9 @@ def main() -> int:
     # ---- 7. allocation kernel against its plain version: request
     # arrays captured from short q=19 closed-loop (W=4) and open-loop
     # (W=6) runs, with the dispatchers wrapped for those runs only; the
-    # open-loop run also captures the UGAL kernel's inputs (phase 8)
-    captured, captured_ugal = [], []
-    real_alloc, real_ugal = engine.alloc_rounds, engine.ugal_select
+    # open-loop run also captures the UGAL route kernel's inputs (phase 8)
+    captured, captured_route = [], []
+    real_alloc, real_route = engine.alloc_rounds, engine.ugal_route
     snap_cycles = (3, 60, 150, 250)
 
     def capture(cycle, *arrays, **kw):
@@ -789,23 +937,23 @@ def main() -> int:
                               if k != "kernel_path"}))
         return real_alloc(cycle, *arrays, **kw)
 
-    ugal_calls = [0]
+    route_calls = [0]
 
-    def capture_ugal(*arrays, **kw):
+    def capture_route(*arrays, **kw):
         # one call per cycle; later cycles have filled queues
-        if ugal_calls[0] in (150, 250):
-            captured_ugal.append([x.clone() for x in arrays])
-        ugal_calls[0] += 1
-        return real_ugal(*arrays, **kw)
-    engine.alloc_rounds, engine.ugal_select = capture, capture_ugal
+        if route_calls[0] in (150, 250):
+            captured_route.append([x.clone() for x in arrays])
+        route_calls[0] += 1
+        return real_route(*arrays, **kw)
+    engine.alloc_rounds, engine.ugal_route = capture, capture_route
     try:
         run_workload(tables, wl, WorkloadSimConfig(chunk=64, max_cycles=256))
         simulate(tab_o, uni, SimConfig(**dict(OPEN_LOOP_CFG, cycles=256,
                                               warmup=0)))
     finally:
-        engine.alloc_rounds, engine.ugal_select = real_alloc, real_ugal
+        engine.alloc_rounds, engine.ugal_route = real_alloc, real_route
     assert len(captured) == 8, len(captured)
-    assert len(captured_ugal) == 2, len(captured_ugal)
+    assert len(captured_route) == 2, len(captured_route)
     cases = list(captured)
     rng = np.random.default_rng(4)
     for cycle, W in ((199_999, 4), (200_000, 4), (17, 4), (199_999, 6),
@@ -848,52 +996,119 @@ def main() -> int:
           "captured_cycles": [c for c, _, _ in captured],
           "w4": w4, "w6": w6})
 
-    # ---- 8. UGAL kernel against its plain version
-    ucases = []
-    for arrays in captured_ugal:
-        for ugal_g in (False, True):
-            ucases.append(("captured_q19", arrays, ugal_g))
+    # ---- 8. UGAL kernels against their plain versions: the fused route
+    # kernel on the captured q=19 cycles with healthy, masked (phase 9's
+    # 5% sample, re-converged) and stale (the same sample, dead ports
+    # only) tables; the contract kernel on the captured cycle's terms and
+    # on random contracts
+    fe19 = failure_sample(tab_o.topo, 0.05, seed=19)
+    t0 = time.perf_counter()
+    tab_d = tab_o.with_failures(fe19, rebuild=True)
+    t_tab = time.perf_counter() - t0
+    tab_s = tab_o.with_failures(fe19, rebuild=False)
+    rkw = dict(unreach=UNREACH, big=BIG_I, occ_cap=engine.OCC_CAP)
+
+    def on_dev(x, dtype):
+        return torch.as_tensor(np.ascontiguousarray(x), device=dev).to(dtype)
+    table_sets = {"healthy": captured_route[0][3:6]}
+    for kind, tab in (("masked", tab_d), ("stale", tab_s)):
+        table_sets[kind] = (on_dev(tab.dist, torch.int16),
+                            on_dev(tab.port_toward, torch.int16),
+                            on_dev(tab.nbr, torch.int32))
     rng = np.random.default_rng(8)
+    rcases = []
+    for cycle, arrays in zip((150, 250), captured_route):
+        src_r, dst_r, cands4, _, _, _, occ = arrays
+        E, N = cands4.shape[0], table_sets["healthy"][0].shape[0]
+        for C in (1, 4, 7):
+            cands = cands4 if C == 4 else torch.from_numpy(
+                rng.integers(0, N, (E, C)).astype(np.int32)).to(dev)
+            for kind, (dist, pt, nbr) in table_sets.items():
+                # the credit view on these tables: BIG on a dead port
+                occ_k = torch.where(nbr >= 0, occ, BIG_I)
+                for ugal_g in (False, True):
+                    rcases.append((kind, cycle, C, ugal_g,
+                                   (src_r, dst_r, cands, dist, pt, nbr,
+                                    occ_k)))
+    err, n_stale, n_val = 0.0, 0, 0
+    for kind, _, _, ugal_g, args in rcases:
+        got = ugal_route_cuda(*args, ugal_g=ugal_g, **rkw)
+        want = ugal_route_ref(*args, ugal_g=ugal_g, **rkw)
+        for g, w in zip(got, want):
+            err = max(err, exact_diff(g, w))
+        n_val += int((want[1] == 0).sum())
+        if kind == "stale" and ugal_g:
+            n_stale += stale_reads(*args[:6])
+    assert n_stale > 0, "no stale table read through a dead port"
+    assert n_val > 0, "no Valiant path chosen"
+
+    scases = []
+    for ugal_g in (False, True):
+        terms = ugal_path_terms(*captured_route[1], ugal_g=ugal_g,
+                                occ_cap=engine.OCC_CAP)[1:]
+        scases.append(("captured_q19", terms, ugal_g))
     for E, C in ((10_830, 1), (10_830, 4), (10_830, 7), (1, 4), (257, 4)):
         arrays = ugal_contract_inputs(rng, dev, E, C)
         for ugal_g in (False, True):
-            ucases.append((f"contract_E{E}_C{C}", arrays, ugal_g))
-    err = 0.0
+            scases.append((f"contract_E{E}_C{C}", arrays, ugal_g))
     n_overflow = 0
-    for _, arrays, ugal_g in ucases:
+    for _, arrays, ugal_g in scases:
         kw = dict(ugal_g=ugal_g, unreach=UNREACH, big=BIG_I)
         err = max(err, exact_diff(ugal_select_cuda(*arrays, **kw),
                                   ugal_select_ref(*arrays, **kw)))
         lv, ov = arrays[1].long(), arrays[3].long()
         n_overflow += int(((lv < UNREACH) & (lv * ov >= 1 << 31)).sum())
     assert n_overflow > 0, "no overflowing product among the cases"
-    arrays = captured_ugal[1]
-    E, C = arrays[1].shape
-    kw = dict(ugal_g=False, unreach=UNREACH, big=BIG_I)
-    ug_ms = time_ms(lambda: ugal_select_cuda(*arrays, **kw), iters=500)
-    ug_plain_ms = time_ms(lambda: ugal_select_ref(*arrays, **kw), iters=100)
-    bytes_ug = 4 * (2 * E + 2 * E * C) + 4 * E
-    ug_bound_ms = 1e3 * bytes_ug / PEAK_BYTES_S
-    report["ugal_select"] = dict(max_abs_err=err, ms=ug_ms,
-                                 plain_ms=ug_plain_ms, bound_ms=ug_bound_ms)
-    emit({"phase": "ugal_select", "equal": True, "cases": len(ucases),
-          "case_names": sorted({c[0] for c in ucases}),
-          "overflowing_live_products": n_overflow,
-          "shape": {"E": E, "C": C}, "ms": ug_ms, "plain_ms": ug_plain_ms,
-          "bound_ms": ug_bound_ms, "bytes": bytes_ug})
 
-    # ---- 9. degraded fabric: 5% of the q=19 links failed
-    fe = failure_sample(tab_o.topo, 0.05, seed=19)
-    t0 = time.perf_counter()
-    tab_d = tab_o.with_failures(fe, rebuild=True)
-    t_tab = time.perf_counter() - t0
+    # times at q=19 (cycle 250, E = 10,830, C = 4): the fused kernel, its
+    # plain version (the gathers' device time), the contract kernel on the
+    # same cycle's terms, and an empty kernel -- the launch floor
+    args = captured_route[1]
+    E, C = args[2].shape
+    utimes = {}
+    for mode, ugal_g in (("ugal_l", False), ("ugal_g", True)):
+        kw = dict(ugal_g=ugal_g, **rkw)
+        terms = ugal_path_terms(*args, ugal_g=ugal_g,
+                                occ_cap=engine.OCC_CAP)[1:]
+        skw = dict(ugal_g=ugal_g, unreach=UNREACH, big=BIG_I)
+        nbytes = ugal_route_bytes(*args[:6], ugal_g)
+        sel_bytes = 4 * (2 * E + 2 * E * C) + 4 * E
+        ms = time_ms(lambda: ugal_route_cuda(*args, **kw), iters=500)
+        utimes[mode] = dict(
+            ms=ms, plain_ms=time_ms(lambda: ugal_route_ref(*args, **kw),
+                                    iters=100),
+            bound_ms=1e3 * nbytes / PEAK_BYTES_S, bytes=nbytes,
+            contract_ms=time_ms(lambda: ugal_select_cuda(*terms, **skw),
+                                iters=500),
+            contract_bound_ms=1e3 * sel_bytes / PEAK_BYTES_S)
+        utimes[mode]["bound_share"] = utimes[mode]["bound_ms"] / ms
+    empty_ms = time_ms(lambda: empty_launch(dev), iters=500)
+    tl, tg = utimes["ugal_l"], utimes["ugal_g"]
+    report["ugal_select"] = dict(
+        max_abs_err=err, kernel="ugal_route", ms=tl["ms"],
+        plain_ms=tl["plain_ms"], bound_ms=tl["bound_ms"],
+        contract_ms=tl["contract_ms"],
+        contract_bound_ms=tl["contract_bound_ms"], empty_ms=empty_ms,
+        ms_ugal_g=tg["ms"], plain_ms_ugal_g=tg["plain_ms"],
+        bound_ms_ugal_g=tg["bound_ms"], contract_ms_ugal_g=tg["contract_ms"])
+    emit({"phase": "ugal", "equal": True, "route_cases": len(rcases),
+          "route_case_kinds": sorted({f"{c[0]}_C{c[2]}" for c in rcases}),
+          "stale_dead_port_reads": n_stale, "valiant_picks": n_val,
+          "select_cases": len(scases),
+          "select_case_names": sorted({c[0] for c in scases}),
+          "overflowing_live_products": n_overflow,
+          "shape": {"E": E, "C": C}, "times": utimes,
+          "empty_kernel_ms": empty_ms})
+
+    # ---- 9. degraded fabric: 5% of the q=19 links failed (tab_d, built
+    # in phase 8)
     live = tab_d.dist < UNREACH
     t0 = time.perf_counter()
     rd = simulate(tab_d, make_traffic(tab_d, "uniform"), SimConfig(
         injection_rate=0.3, cycles=1000, warmup=250, lookahead=6,
         mode="ugal_g", seed=0))
     d_s = time.perf_counter() - t0
-    emit({"phase": "degraded", "q": 19, "failed_links": len(fe),
+    emit({"phase": "degraded", "q": 19, "failed_links": len(fe19),
           "links": len(tab_o.topo.edge_list()),
           "live_pairs_share": float(live.mean()),
           "max_dist": int(tab_d.dist[live].max()), "mode": "ugal_g",
@@ -937,10 +1152,13 @@ def main() -> int:
           "cuda_s": out["cuda_s"], "ref_s": out["ref_s"], "equal": True})
 
     # ---- 11. whole open loop, kernel path against plain path, at q=7
-    tab7m = tab7.with_failures(failure_sample(topo7, 0.1, seed=7))
+    fe7 = failure_sample(topo7, 0.1, seed=7)
+    tab7m = tab7.with_failures(fe7)
+    tab7s = tab7.with_failures(fe7, rebuild=False)
     runs = 0
     t0 = time.perf_counter()
-    for tkind, tab in (("healthy", tab7), ("masked", tab7m)):
+    for tkind, tab in (("healthy", tab7), ("masked", tab7m),
+                       ("stale", tab7s)):
         for pattern in ("uniform", "worstcase_sf"):
             tr = make_traffic(tab, pattern)
             for mode in ("val", "ugal_l", "ugal_g"):
@@ -956,7 +1174,7 @@ def main() -> int:
     emit({"phase": "paths_equal_open", "q": 7, "runs": runs, "cycles": 300,
           "modes": ["val", "ugal_l", "ugal_g"],
           "traffic": ["uniform", "worstcase_sf"],
-          "tables": ["healthy", "masked 10%"], "equal": True,
+          "tables": ["healthy", "masked 10%", "stale 10%"], "equal": True,
           "wall_s": time.perf_counter() - t0})
 
     attn_decode_phase(dev, report)                       # phase 12
@@ -979,8 +1197,8 @@ def main() -> int:
              library_ms=None, **report["alloc_rounds"]),
         dict(name="ugal_select", route="cuda", source=src + "ugal.cu",
              replaces="src/repro/kernels/alloc.py:170",
-             launches=launches_open["ugal_select"],
-             launches_closed_loop=launches["ugal_select"], bound_by="bytes",
+             launches=launches_open["ugal_route"],
+             launches_closed_loop=launches["ugal_route"], bound_by="bytes",
              library_ms=None, **report["ugal_select"]),
         dict(name="decode_attention", route="cuda",
              source=src + "attn_decode.cu",

@@ -5,7 +5,8 @@ version and a launch count.
            (replaces `repro.kernels.minplus.minplus_pallas`)
 - alloc:   W-round switch allocation of the flit engine
            (replaces `repro.kernels.alloc.alloc_rounds_pallas`)
-- ugal:    UGAL/VAL candidate selection at injection
+- ugal:    UGAL route choice at injection, fused into one launch, and
+           the candidate selection of the TPU kernel's own contract
            (replaces `repro.kernels.alloc.ugal_select_pallas`)
 - attn_decode: GQA flash-decode attention of the serving path
            (replaces `repro.kernels.attn_decode.decode_attention_pallas`)
@@ -18,15 +19,17 @@ from .alloc import alloc_rounds, alloc_rounds_cuda
 from .attn_decode import decode_attention_cuda
 from .minplus import minplus_cuda
 from .ops import apsp, decode_attention, minplus, seed_distance
-from .ugal import ugal_select, ugal_select_cuda
+from .ugal import ugal_route, ugal_route_cuda, ugal_select, ugal_select_cuda
 
 __all__ = ["KERNELS", "alloc_rounds", "apsp", "decode_attention",
            "launch_counts", "minplus", "reset_launch_counts",
-           "seed_distance", "ugal_select"]
+           "seed_distance", "ugal_route", "ugal_select"]
 
 # kernel name -> its wrapper, which counts its own launches
+# (ugal_route is the simulator's; ugal_select is off every path, held
+# and timed beside it)
 KERNELS = {"minplus": minplus_cuda, "alloc_rounds": alloc_rounds_cuda,
-           "ugal_select": ugal_select_cuda,
+           "ugal_route": ugal_route_cuda, "ugal_select": ugal_select_cuda,
            "decode_attention": decode_attention_cuda}
 
 

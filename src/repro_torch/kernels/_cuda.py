@@ -23,7 +23,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["BUILD_DIR", "KERNEL_PATHS", "build", "build_log", "library",
-           "launch_function", "use_kernel", "check_cuda_tensor"]
+           "library_path", "launch_function", "use_kernel",
+           "check_cuda_tensor"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -88,6 +89,11 @@ def build_log(name: str) -> str:
     the current build of `name`."""
     log = _target(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def library_path(name: str) -> Path:
+    """Where the current build of kernel `name` lies (built or not)."""
+    return _target(name)
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -18,6 +18,10 @@ oracles in `repro.kernels.ref`, with these deliberate differences:
 - `ugal_select_ref` computes UGAL-L's ``len * occ`` in int64 and wraps
   it to int32 explicitly, which is the two's-complement wrap that jnp's
   int32 multiply gives (torch leaves int32 overflow to C++).
+- `ugal_route_ref` has no single counterpart in the reference: it is the
+  UGAL branch of `repro.sim.engine.SwitchCore.route_decision` from the
+  drawn candidates on (bumps, gathers, `ugal_select_ref`, the pick), the
+  contract of the fused kernel `csrc/ugal.cu::ugal_route_kernel`.
 
 `decode_attention_ref` is the reference's oracle as it stands: one
 float32 softmax over every position, masked with -inf (the kernel skips
@@ -29,6 +33,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["BIG_F", "KSHIFT", "minplus_ref", "alloc_rounds_ref",
+           "bump_candidates", "ugal_path_terms", "ugal_route_ref",
            "ugal_select_ref", "decode_attention_ref", "default_scale"]
 
 BIG_F = 3.0e38   # +inf stand-in of the distance matrices (inf-free sums)
@@ -206,6 +211,83 @@ def ugal_select_ref(len_min, len_val, occ_min, occ_val,
                        device=scores.device)
     first = torch.where(scores == m, idx, scores.shape[1]).amin(dim=1)
     return first.to(torch.int32)
+
+
+def bump_candidates(cands, src_r, dst_r, n: int, bumps=(1, 2)):
+    """Move every candidate that equals its endpoint's source or
+    destination router on by each bump in turn, modulo n (UGAL bumps by
+    1 then 2, VAL by 1 twice).  src_r and dst_r broadcast against
+    cands."""
+    for bump in bumps:
+        bad = (cands == src_r) | (cands == dst_r)
+        cands = torch.where(bad, (cands + bump) % n, cands)
+    return cands
+
+
+def ugal_path_terms(src_r, dst_r, cands, dist, port_toward, nbr, occ,
+                    *, ugal_g: bool, occ_cap: int):
+    """The bumped candidates and `ugal_select_ref`'s four inputs (len_min,
+    len_val, occ_min, occ_val) of the UGAL route choice; arguments as in
+    `ugal_route_ref`."""
+    N = dist.shape[0]
+    i32 = torch.int32
+    s_, d_ = src_r[:, None], dst_r[:, None]
+    cands = bump_candidates(cands, s_, d_, N)
+
+    def dist32(s, t):
+        # int16 + int16 stays int16 in torch, and a cut pair's
+        # UNREACH + UNREACH = 2^15 would wrap: widen before adding
+        return dist[s, t].to(i32)
+
+    def first_occ(s, t):
+        o = port_toward[s, t].to(i32)
+        return torch.where(o >= 0, occ[s, o.clamp(min=0)].clamp(max=occ_cap),
+                           0)
+
+    def path_occ(s, t):
+        """Occupancy sum along the MIN path (D <= 2 fast form)."""
+        o1 = port_toward[s, t].to(i32)
+        m = nbr[s, o1.clamp(min=0)]
+        # Stale tables (with_failures(rebuild=False)) can route through a
+        # dead port, where m = -1.  The reference then reads row N - 1
+        # (jnp wraps a negative index); so does the port, by the same
+        # wrap written out.
+        m = torch.where(m < 0, m + N, m)
+        second = torch.where(dist32(s, t) >= 2, first_occ(m, t), 0)
+        return first_occ(s, t) + second
+
+    len_min = dist32(src_r, dst_r)                                # [E]
+    len_val = dist32(s_, cands) + dist32(cands, d_)               # [E, C]
+    if ugal_g:   # smallest sum of queues along the whole path
+        occ_min = path_occ(src_r, dst_r)
+        occ_val = path_occ(s_, cands) + path_occ(cands, d_)
+    else:        # UGAL-L: the first hop's queue
+        occ_min = first_occ(src_r, dst_r)
+        occ_val = first_occ(s_, cands)
+    return cands, len_min, len_val, occ_min, occ_val
+
+
+def ugal_route_ref(src_r, dst_r, cands, dist, port_toward, nbr, occ,
+                   *, ugal_g: bool, unreach: int, big: int, occ_cap: int):
+    """UGAL route choice per endpoint: MIN against C Valiant candidates.
+
+      src_r, dst_r: [E] int32      source and destination routers
+      cands: [E, C] int32          raw draws in [0, N), not yet bumped
+      dist, port_toward: [N, N]    int16 tables (port -1: none)
+      nbr, occ: [N, P] int32       neighbours (-1: dead or pad port) and
+                                   `SwitchCore.occupancy` (may hold BIG)
+    Candidates equal to an endpoint are bumped (1, then 2); UGAL-L scores
+    len * (first hop's occupancy), UGAL-G occ + len with the occupancy
+    summed along both legs' MIN paths, occupancies capped at `occ_cap`;
+    the first minimum over [MIN, cand_0, ..] wins (`ugal_select_ref`).
+    Returns (inter, phase) [E] int32: the destination and phase 1 where
+    MIN wins, else the winning candidate and phase 0."""
+    cands, *terms = ugal_path_terms(src_r, dst_r, cands, dist, port_toward,
+                                    nbr, occ, ugal_g=ugal_g, occ_cap=occ_cap)
+    best = ugal_select_ref(*terms, ugal_g=ugal_g, unreach=unreach, big=big)
+    inters = torch.cat([dst_r[:, None], cands], dim=1)
+    inter = inters.gather(1, best[:, None].long())[:, 0]
+    return inter, (best == 0).to(torch.int32)
 
 
 def _mul_wrap32(a, b):

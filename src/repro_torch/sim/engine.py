@@ -4,10 +4,11 @@ from `repro.sim.engine`.
 `SwitchCore` holds one fabric's tables on a device and runs the parts
 of a cycle that every engine shares: the credit view (`occupancy`),
 per-flit route choice (`route_decision`: MIN, VAL, UGAL-L, UGAL-G; the
-UGAL score through the CUDA kernel `repro_torch.kernels.ugal` on the
-card), tail enqueue into the source queues (`inject`), and `alloc`: one
-W-slot window of every queue, route desires for all W slots at once, W
-rounds of rotating-priority allocation (the CUDA kernel
+whole UGAL choice in one launch of the CUDA kernel
+`repro_torch.kernels.ugal.ugal_route_cuda` on the card), tail enqueue
+into the source queues (`inject`), and `alloc`: one W-slot window of
+every queue, route desires for all W slots at once, W rounds of
+rotating-priority allocation (the CUDA kernel
 `repro_torch.kernels.alloc` on the card), then arrivals and shift-down
 compaction.  The model and the two identities that make the
 single-window gather exact are those of the reference (module docstring
@@ -30,7 +31,8 @@ Every index below is clamped visibly -- garbage records in zero-filled
 or stale queue slots (valid records or zeros) index row 0 harmlessly,
 and are never granted because the allocation masks requests by the
 cycle-start queue depth -- except one read in UGAL-G's path occupancy,
-which reproduces the reference's wrap of a -1 router (see `path_occ`).
+which reproduces the reference's wrap of a -1 router (see
+`repro_torch.kernels.ref.ugal_path_terms`).
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ import torch
 
 from .. import resolve_device
 from ..core.routing import UNREACH
-from ..kernels import alloc_rounds, ugal_select
+from ..kernels import alloc_rounds, ugal_route
+from ..kernels.ref import bump_candidates
 from ..kernels._cuda import KERNEL_PATHS
 from .packed import (MAX_ROUTERS, PK, bump_hops_word, pack_record, pk_dst,
                      pk_hops, pk_inter, pk_phase, pk_time)
@@ -224,58 +227,22 @@ class SwitchCore:
         if mode == "min":
             return dst_r, torch.ones_like(dst_r)
         if mode == "val":
-            i = source.randint("route", (n_ep,), 0, N)
-            for bump in (1, 1):
-                bad = (i == src_r) | (i == dst_r)
-                i = torch.where(bad, (i + bump) % N, i)
+            i = bump_candidates(source.randint("route", (n_ep,), 0, N),
+                                src_r, dst_r, N, (1, 1))
             # degraded fabrics: only detour via intermediates that can
             # still reach both endpoints; dead draws fall back to MIN
             live = (self._dist32(src_r, i)
                     + self._dist32(i, dst_r)) < int(UNREACH)
             return torch.where(live, i, dst_r), (~live).to(I32)
 
-        # UGAL: score MIN against C random VAL candidates (live ones only)
+        # UGAL: score MIN against C random VAL candidates (live ones
+        # only): bumps, gathers, scores and the pick in one kernel launch
+        # on the card (`repro_torch.kernels.ref.ugal_route_ref` on the CPU)
         cands = source.randint("route", (n_ep, C), 0, N)
-        for bump in (1, 2):
-            bad = (cands == src_r[:, None]) | (cands == dst_r[:, None])
-            cands = torch.where(bad, (cands + bump) % N, cands)
-        port_toward, nbr = self.port_toward, self.nbr
-
-        def first_occ(s, t):
-            o = port_toward[s, t].to(I32)
-            return torch.where(o >= 0,
-                               occ[s, o.clamp(min=0)].clamp(max=OCC_CAP), 0)
-
-        def path_occ(s, t):
-            """Occupancy sum along the MIN path (D <= 2 fast form)."""
-            o1 = port_toward[s, t].to(I32)
-            m = nbr[s, o1.clamp(min=0)]
-            # Stale tables (with_failures(rebuild=False)) can route through
-            # a dead port, where m = -1.  The reference then reads row
-            # N - 1 (jnp wraps a negative index); so does the port, by
-            # the same wrap written out.
-            m = torch.where(m < 0, m + N, m)
-            two = self._dist32(s, t) >= 2
-            second = torch.where(two, first_occ(m, t), 0)
-            return first_occ(s, t) + second
-
-        len_min = self._dist32(src_r, dst_r)                      # [n_ep]
-        len_val = (self._dist32(src_r[:, None], cands)
-                   + self._dist32(cands, dst_r[:, None]))         # [n_ep, C]
-        if mode == "ugal_l":
-            occ_min = first_occ(src_r, dst_r)
-            occ_val = first_occ(src_r[:, None], cands)
-        else:  # ugal_g: smallest sum of queues along the whole path
-            occ_min = path_occ(src_r, dst_r)
-            occ_val = (path_occ(src_r[:, None], cands)
-                       + path_occ(cands, dst_r[:, None]))
-        best = ugal_select(len_min, len_val, occ_min, occ_val,
-                           ugal_g=(mode == "ugal_g"), unreach=int(UNREACH),
-                           big=BIG, kernel_path=self.kernel_path)
-        inters = torch.cat([dst_r[:, None], cands], dim=1)
-        inter = inters.gather(1, best[:, None].long())[:, 0]
-        phase = (best == 0).to(I32)                               # MIN: phase 1
-        return inter, phase
+        return ugal_route(src_r, dst_r, cands, self.dist, self.port_toward,
+                          self.nbr, occ, ugal_g=(mode == "ugal_g"),
+                          unreach=int(UNREACH), big=BIG, occ_cap=OCC_CAP,
+                          kernel_path=self.kernel_path)
 
     def _desires(self, pkt, router):
         """Table-routed desires of window records: (out port, out VC,

@@ -17,7 +17,8 @@ from repro_torch.kernels.alloc import alloc_rounds_cuda, alloc_rounds_ref
 from repro_torch.kernels.attn_decode import (decode_attention_cuda,
                                              decode_attention_ref)
 from repro_torch.kernels.minplus import minplus_cuda, minplus_ref
-from repro_torch.kernels.ugal import ugal_select_cuda, ugal_select_ref
+from repro_torch.kernels.ugal import (ugal_route_cuda, ugal_route_ref,
+                                      ugal_select_cuda, ugal_select_ref)
 
 BIG = 3.0e38
 UNREACH, BIG_I = 1 << 14, 1 << 30
@@ -37,6 +38,47 @@ def _minplus_inputs(shape, seed):
 
 MINPLUS_SHAPES = [(1, 8, 8, 8), (3, 30, 51, 13), (2, 130, 140, 129),
                   (1, 37, 300, 5)]
+# the kernel's edges (chip_smoke.py phase 3): one element, K = 1, M, K and
+# N off the 128-tile and the 8-chunk, and the batched squaring of eight
+# q=19 failure samples
+MINPLUS_EDGE_SHAPES = [(1, 1, 1, 1), (2, 50, 1, 70), (3, 129, 722, 65),
+                       (8, 722, 722, 722)]
+
+
+def _minplus_signed_inputs(shape, seed):
+    """Floats of both signs and every class the kernel's atomic min must
+    order: normals, -0.0, +inf, +-3e38 (no -inf, so no sum is inf - inf).
+    Row 0 of A is +inf (its results saturate to 3e38); row 1 of A and
+    column 1 of B are -0.0 (result [1, 1] is -0.0).  M, N >= 2."""
+    b, m, k, n = shape
+    rng = np.random.default_rng(seed)
+
+    def mat(r, c):
+        x = (rng.standard_normal((b, r, c)) * 100).astype(np.float32)
+        u = rng.random((b, r, c))
+        x[u < 0.05] = -0.0
+        x[(u >= 0.05) & (u < 0.1)] = np.inf
+        x[(u >= 0.1) & (u < 0.15)] = BIG
+        x[(u >= 0.15) & (u < 0.2)] = -BIG
+        return x
+    a, bm = mat(m, k), mat(k, n)
+    a[:, 0, :] = np.inf
+    a[:, 1, :] = -0.0
+    bm[:, :, 1] = -0.0
+    return a, bm
+
+
+def failure_mask(topo, seed, frac=0.1, cut_router=True):
+    """A seeded sample of `frac` of the links; with `cut_router`, also
+    every link of one router, which cuts it off."""
+    rng = np.random.default_rng(seed)
+    edges = topo.edge_list()
+    pick = edges[rng.choice(len(edges), int(frac * len(edges)),
+                            replace=False)]
+    if cut_router:
+        r = int(rng.integers(topo.n_routers))
+        pick = np.concatenate([pick, edges[(edges == r).any(axis=1)]])
+    return np.unique(np.sort(pick, axis=1), axis=0).astype(np.int32)
 
 
 def _alloc_inputs(seed, N=13, P=5, V=2, PE=3, W=4, cycle=199_999,
@@ -143,7 +185,8 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", MINPLUS_SHAPES + [(1, 722, 722, 722)])
+@pytest.mark.parametrize("shape", MINPLUS_SHAPES + [(1, 722, 722, 722)]
+                         + MINPLUS_EDGE_SHAPES)
 def test_minplus_cuda_matches_plain(cuda_device, shape):
     a, b = _minplus_inputs(shape, seed=sum(shape))
     at, bt = (torch.from_numpy(x).to(cuda_device) for x in (a, b))
@@ -152,6 +195,33 @@ def test_minplus_cuda_matches_plain(cuda_device, shape):
     torch.cuda.synchronize()
     assert minplus_cuda.launches == before + 1
     torch.testing.assert_close(got, minplus_ref(at, bt), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 200, 300, 150), (1, 722, 722, 722)])
+def test_minplus_cuda_signed_floats(cuda_device, shape):
+    """Negative floats, -0.0, +inf and +-3e38: the K-slices' atomic min
+    orders every float, not only hop distances."""
+    a, b = _minplus_signed_inputs(shape, seed=sum(shape))
+    at, bt = (torch.from_numpy(x).to(cuda_device) for x in (a, b))
+    got = minplus_cuda(at, bt)
+    want = minplus_ref(at, bt)
+    torch.cuda.synchronize()
+    assert bool((want < 0).any()) and bool((want[:, 0] == BIG).all())
+    assert bool(torch.signbit(want[:, 1, 1]).all())
+    assert not bool(torch.isnan(got).any())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_minplus_cuda_refuses_what_it_does_not_take(cuda_device):
+    a = torch.zeros((3, 4), device=cuda_device)
+    with pytest.raises(ValueError):
+        minplus_cuda(a.double(), a.double().T.contiguous())
+    with pytest.raises(ValueError):
+        minplus_cuda(a, torch.zeros((5, 2), device=cuda_device))
+    with pytest.raises(ValueError):
+        minplus_cuda(a.cpu(), a.T.contiguous().cpu())
 
 
 @pytest.mark.cuda
@@ -230,6 +300,102 @@ def test_ugal_cuda_matches_plain(cuda_device, seed, E, C, ugal_g):
                                atol=0)
 
 
+def _route_case(device, kind, mode, C, seed=7):
+    """SwitchCore of SF q=7 (healthy, masked with one router cut off, or
+    stale) on `device`, with one cycle's route-choice inputs: random
+    depths, destinations and raw candidate draws."""
+    from repro_torch.core import build_slimfly
+    from repro_torch.sim import SimConfig, SimTables, SwitchCore
+    tables = SimTables.build(build_slimfly(7), device=device)
+    if kind != "healthy":
+        tables = tables.with_failures(failure_mask(tables.topo, seed=7),
+                                      rebuild=kind == "masked",
+                                      device=device)
+    core = SwitchCore(tables, SimConfig(mode=mode, n_val_candidates=C),
+                      device=device)
+    rng = np.random.default_rng(seed)
+    N, P, E = tables.n_routers, tables.P, tables.n_endpoints
+    occ = core.occupancy(torch.from_numpy(
+        rng.integers(0, 17, (N, P, 4)).astype(np.int32)).to(device))
+    dst = core.ep_router[torch.from_numpy(rng.integers(0, E, E)).to(device)]
+    cands = torch.from_numpy(rng.integers(0, N, (E, C)).astype(np.int32))
+    return tables, core, occ, dst.contiguous(), cands.to(device)
+
+
+def _route_matches_plain(core, src, dst, cands, occ, mode):
+    from repro_torch.sim.engine import BIG as BIG_S, OCC_CAP
+    args = (src, dst, cands, core.dist, core.port_toward, core.nbr, occ)
+    kw = dict(ugal_g=mode == "ugal_g", unreach=UNREACH, big=BIG_S,
+              occ_cap=OCC_CAP)
+    before = ugal_route_cuda.launches
+    got = ugal_route_cuda(*args, **kw)
+    want = ugal_route_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert ugal_route_cuda.launches == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 4, 7])
+@pytest.mark.parametrize("mode", ["ugal_l", "ugal_g"])
+@pytest.mark.parametrize("kind", ["healthy", "masked", "stale"])
+def test_ugal_route_cuda_matches_plain(cuda_device, kind, mode, C):
+    _, core, occ, dst, cands = _route_case(cuda_device, kind, mode, C)
+    inter, phase = _route_matches_plain(core, core.ep_router, dst, cands,
+                                        occ, mode)
+    assert bool((phase == 1).any()) and bool((phase == 0).any())
+
+
+@pytest.mark.cuda
+def test_ugal_route_cuda_one_endpoint_and_dead_candidates(cuda_device):
+    """E = 1, and rows whose every candidate is the router the mask cut
+    off: all candidates score `big`, so MIN wins -- also where the
+    destination is that router and MIN is dead too (a tie of `big`s)."""
+    tables, core, occ, dst, cands = _route_case(cuda_device, "masked",
+                                                "ugal_g", 4)
+    for mode in ("ugal_l", "ugal_g"):
+        _route_matches_plain(core, core.ep_router[:1].contiguous(),
+                             dst[:1].contiguous(), cands[:1].contiguous(),
+                             occ, mode)
+    cut = int(np.flatnonzero(
+        (tables.dist >= UNREACH).sum(axis=1) == tables.n_routers - 1)[0])
+    ep = core.ep_router
+    rows = torch.nonzero(ep != cut).flatten()[:2]
+    src = ep[rows].contiguous()
+    other = next(r for r in range(tables.n_routers)
+                 if r not in (cut, int(src[0])))
+    dst2 = torch.tensor([other, cut], dtype=torch.int32, device=cuda_device)
+    cands2 = torch.full((2, 4), cut, dtype=torch.int32, device=cuda_device)
+    for mode in ("ugal_l", "ugal_g"):
+        inter, phase = _route_matches_plain(core, src, dst2, cands2, occ,
+                                            mode)
+        assert phase.tolist() == [1, 1] and inter.tolist() == [other, cut]
+
+
+@pytest.mark.cuda
+def test_ugal_route_cuda_refuses_what_it_does_not_take(cuda_device):
+    _, core, occ, dst, cands = _route_case(cuda_device, "healthy", "ugal_l",
+                                           4)
+    kw = dict(ugal_g=False, unreach=UNREACH, big=BIG_I, occ_cap=1 << 20)
+    base = (core.ep_router, dst, cands, core.dist, core.port_toward,
+            core.nbr, occ)
+    bad = [
+        (2, cands[:, :0].contiguous()),          # C = 0
+        (3, core.dist.to(torch.int32)),          # int32 table
+        (4, core.port_toward[:-1].contiguous()), # wrong shape
+        (6, occ.cpu()),                          # off the card
+    ]
+    before = ugal_route_cuda.launches
+    for i, t in bad:
+        args = list(base)
+        args[i] = t
+        with pytest.raises(ValueError):
+            ugal_route_cuda(*args, **kw)
+    assert ugal_route_cuda.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["val", "ugal_l", "ugal_g"])
 def test_open_loop_kernel_path_matches_plain_path(cuda_device, mode):
@@ -247,13 +413,16 @@ def test_open_loop_kernel_path_matches_plain_path(cuda_device, mode):
         tr = make_traffic(tables, "uniform")
         runs = []
         for path in ("cuda", "ref"):
-            before = launch_counts()["ugal_select"]
+            before = launch_counts()
             runs.append(simulate(tables, tr, SimConfig(
                 injection_rate=0.6, cycles=300, warmup=100, mode=mode,
                 seed=3, kernel_path=path)))
-            launched = launch_counts()["ugal_select"] - before
-            assert launched == (300 if path == "cuda" and mode != "val"
-                                else 0)
+            after = launch_counts()
+            # one fused route launch per cycle under UGAL; the contract
+            # kernel is off the path
+            assert after["ugal_route"] - before["ugal_route"] == (
+                300 if path == "cuda" and mode != "val" else 0)
+            assert after["ugal_select"] == before["ugal_select"]
         for f, v in vars(runs[0]).items():
             np.testing.assert_array_equal(v, getattr(runs[1], f), err_msg=f)
 

@@ -20,9 +20,11 @@ from repro.kernels.ref import minplus_ref as jax_minplus_ref
 from repro_torch.kernels import apsp, launch_counts, reset_launch_counts
 from repro_torch.kernels.alloc import (alloc_rounds, alloc_rounds_cuda,
                                        alloc_rounds_ref)
-from repro_torch.kernels.minplus import minplus, minplus_ref
-from test_torch_cuda import (ALLOC_CASES, BIG, MINPLUS_SHAPES,
-                             _alloc_inputs, _minplus_inputs)
+from repro_torch.kernels.minplus import BK, BM, BN, minplus, minplus_ref
+from repro_torch.kernels.minplus import work_plan as minplus_work_plan
+from test_torch_cuda import (ALLOC_CASES, BIG, MINPLUS_EDGE_SHAPES,
+                             MINPLUS_SHAPES, _alloc_inputs, _minplus_inputs,
+                             _minplus_signed_inputs)
 
 def _sentinel(x):
     """Map every value >= 1e37 to one sentinel (the jnp oracle does not
@@ -43,6 +45,50 @@ def test_minplus_plain_matches_pallas(shape):
     # the dispatcher takes the plain version for CPU tensors
     np.testing.assert_array_equal(
         minplus(torch.from_numpy(a), torch.from_numpy(b)).numpy(), want)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1), (2, 50, 1, 70)])
+def test_minplus_plain_matches_pallas_at_the_edges(shape):
+    """One element, and K = 1 (the kernel's smallest K-chunk)."""
+    a, b = _minplus_inputs(shape, seed=sum(shape))
+    want = np.asarray(minplus_pallas(jnp.asarray(a), jnp.asarray(b)))
+    got = minplus_ref(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_minplus_plain_matches_pallas_on_signed_floats():
+    """Negatives, -0.0, +inf and +-3e38, which the card kernel's atomic
+    min must order (tests/test_torch_cuda.py holds it there)."""
+    a, b = _minplus_signed_inputs((2, 40, 70, 30), seed=3)
+    want = np.asarray(minplus_pallas(jnp.asarray(a), jnp.asarray(b)))
+    got = minplus_ref(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    assert (got < 0).any() and (got[:, 0] == BIG).all()
+    assert np.signbit(got[:, 1, 1]).all()
+    np.testing.assert_array_equal(got, want)
+
+
+# chip_smoke.py phase 3's shapes, on an H100's 264 persistent blocks and
+# on grids that leave a share empty (more blocks than iterations) or
+# give a share several tiles
+@pytest.mark.parametrize("n_blocks", [264, 1, 7, 1000])
+@pytest.mark.parametrize("shape", [(1, 722, 722, 722), (3, 300, 517, 129)]
+                         + MINPLUS_EDGE_SHAPES)
+def test_minplus_work_plan_covers_every_iteration_once(shape, n_blocks):
+    Bt, M, K, N = shape
+    tm, tn, kc = -(-M // BM), -(-N // BN), -(-K // BK)
+    seen = np.zeros((Bt, tm, tn, kc), dtype=np.int32)
+    plan = minplus_work_plan(Bt, M, K, N, n_blocks)
+    total = Bt * tm * tn * kc
+    assert len(plan) == min(n_blocks, total)
+    for pieces in plan:
+        assert pieces, "a launched block with no work"
+        for bt, ti, tj, k0, k1 in pieces:
+            assert 0 <= k0 < k1 <= kc
+            seen[bt, ti, tj, k0:k1] += 1
+    assert (seen == 1).all()
+    # equal shares: block sizes differ by at most one iteration
+    sizes = [sum(k1 - k0 for *_, k0, k1 in p) for p in plan]
+    assert max(sizes) - min(sizes) <= 1
 
 
 def test_minplus_plain_unbatched_and_chunked(monkeypatch):
@@ -113,7 +159,8 @@ def test_cpu_tensor_never_launches_a_kernel():
     cycle, arrs, kw = _alloc_inputs(4)
     alloc_rounds(cycle, *(torch.from_numpy(v) for v in arrs.values()), **kw)
     assert launch_counts() == {"minplus": 0, "alloc_rounds": 0,
-                               "ugal_select": 0, "decode_attention": 0}
+                               "ugal_route": 0, "ugal_select": 0,
+                               "decode_attention": 0}
     # forcing the kernel on a CPU tensor raises; it never falls back
     with pytest.raises(ValueError):
         minplus(torch.from_numpy(a), torch.from_numpy(b), kernel_path="cuda")

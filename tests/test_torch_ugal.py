@@ -6,9 +6,12 @@ reference on the CPU:
   oracle, on contracts with dead paths, ties and overflowing products;
 - `SwitchCore.route_decision` for val/ugal_l/ugal_g on healthy,
   failure-masked and stale tables, fed the reference's own draws;
+- the plain `ugal_route_ref` (the fused route kernel's contract) against
+  the reference's `route_decision` at q=7 and at q=5 with 1 and 7
+  candidates;
 - the closed loop (`run_workload`) in val/ugal_l/ugal_g under replayed
   draws, against the reference's run.
-The CUDA kernel is held against the plain version on the card by
+The CUDA kernels are held against the plain versions on the card by
 tests/test_torch_cuda.py."""
 
 import numpy as np
@@ -28,12 +31,16 @@ from repro.sim.workloads import WorkloadSimConfig as JaxWorkloadCfg
 from repro.sim.workloads import run_workload as jax_run_workload
 import repro_torch.core as tc
 from repro_torch.kernels import launch_counts
-from repro_torch.kernels.ugal import ugal_select, ugal_select_ref
+from repro_torch.kernels.ref import bump_candidates
+from repro_torch.kernels.ugal import (ugal_route, ugal_route_ref,
+                                      ugal_select, ugal_select_ref)
 from repro_torch.sim import (Draw, ReplaySource, SimConfig, SimTables,
                              SwitchCore)
+from repro_torch.sim.engine import BIG, OCC_CAP
 from repro_torch.sim.workloads import (WorkloadSimConfig, ring_all_reduce,
                                        run_workload)
-from test_torch_cuda import BIG_I, UGAL_CASES, UNREACH, _ugal_inputs
+from test_torch_cuda import (BIG_I, UGAL_CASES, UNREACH, _ugal_inputs,
+                             failure_mask)
 
 
 @pytest.fixture(autouse=True)
@@ -78,19 +85,6 @@ def test_ugal_on_cpu_never_launches_and_never_falls_back():
 
 # ---------------------------------------------------------------------------
 # tables: healthy, masked (10% of links and one router cut off), stale
-
-def failure_mask(topo, seed, frac=0.1, cut_router=True):
-    """A seeded sample of `frac` of the links; with `cut_router`, also
-    every link of one router, which cuts it off."""
-    rng = np.random.default_rng(seed)
-    edges = topo.edge_list()
-    pick = edges[rng.choice(len(edges), int(frac * len(edges)),
-                            replace=False)]
-    if cut_router:
-        r = int(rng.integers(topo.n_routers))
-        pick = np.concatenate([pick, edges[(edges == r).any(axis=1)]])
-    return np.unique(np.sort(pick, axis=1), axis=0).astype(np.int32)
-
 
 _TABLES = {}
 
@@ -157,6 +151,80 @@ def test_route_decision_matches_reference(mode, kind):
         ep = tt.ep_router
         assert (_stale_reads(tt, ep[:, None], cands)
                 + _stale_reads(tt, cands, dst_r[:, None])) > 0
+
+
+def _route_inputs(tt, C, seed=7):
+    """Depths, destinations and the reference's C-candidate draws for one
+    cycle of route choice on port tables `tt` (numpy)."""
+    rng = np.random.default_rng(seed)
+    N, n_ep, P = tt.n_routers, tt.n_endpoints, tt.P
+    nq_count = rng.integers(0, 17, (N, P, 4)).astype(np.int32)
+    dst_r = tt.ep_router[rng.integers(0, n_ep, n_ep)].astype(np.int32)
+    key = jax.random.PRNGKey(11 + C)
+    cands = np.array(jax.random.randint(key, (n_ep, C), 0, N))
+    return nq_count, dst_r, key, cands
+
+
+@pytest.mark.parametrize("kind", ["healthy", "masked", "stale"])
+@pytest.mark.parametrize("mode", ["ugal_l", "ugal_g"])
+@pytest.mark.parametrize("q,C", [(7, 4), (5, 1), (5, 7)])
+def test_ugal_route_ref_matches_reference(q, C, mode, kind):
+    """The fused kernel's plain version, called with SwitchCore's own
+    tensors, equals the reference's route_decision fed the same draws;
+    so does route_decision, which calls it through the dispatcher."""
+    jt, tt = both_tables(q, kind)
+    nq_count, dst_r, key, cands = _route_inputs(tt, C)
+    jcore = JaxSwitchCore(jt, JaxSimConfig(mode=mode, n_val_candidates=C,
+                                           kernel_path="ref"))
+    j_occ = jcore.occupancy(jnp.asarray(nq_count))
+    j_inter, j_phase = jcore.route_decision(jnp.asarray(dst_r), j_occ, key)
+
+    core = SwitchCore(tt, SimConfig(mode=mode, n_val_candidates=C),
+                      device="cpu")
+    occ = core.occupancy(torch.from_numpy(nq_count))
+    dst = torch.from_numpy(dst_r)
+    inter, phase = ugal_route_ref(
+        core.ep_router, dst, torch.from_numpy(cands), core.dist,
+        core.port_toward, core.nbr, occ, ugal_g=mode == "ugal_g",
+        unreach=UNREACH, big=BIG, occ_cap=OCC_CAP)
+    assert inter.dtype == phase.dtype == torch.int32
+    np.testing.assert_array_equal(inter.numpy(), np.asarray(j_inter))
+    np.testing.assert_array_equal(phase.numpy(), np.asarray(j_phase))
+    src = ReplaySource({(0, "route"): Draw("randint", (0, tt.n_routers),
+                                           cands)})
+    src.begin_cycle(0)
+    r_inter, r_phase = core.route_decision(dst, occ, src)
+    src.finish()
+    np.testing.assert_array_equal(r_inter.numpy(), np.asarray(j_inter))
+    np.testing.assert_array_equal(r_phase.numpy(), np.asarray(j_phase))
+    # both branches occur, so the comparison has teeth
+    assert (phase.numpy() == 1).any() and (phase.numpy() == 0).any()
+    if kind == "stale" and mode == "ugal_g":
+        ep = tt.ep_router
+        bumped = bump_candidates(torch.from_numpy(cands),
+                                 torch.from_numpy(ep)[:, None],
+                                 dst[:, None], tt.n_routers).numpy()
+        assert (_stale_reads(tt, ep, dst_r)
+                + _stale_reads(tt, ep[:, None], bumped)
+                + _stale_reads(tt, bumped, dst_r[:, None])) > 0
+
+
+def test_ugal_route_on_cpu_never_launches_and_never_falls_back():
+    _, tt = both_tables(5, "healthy")
+    nq_count, dst_r, _, cands = _route_inputs(tt, 4)
+    core = SwitchCore(tt, SimConfig(mode="ugal_g"), device="cpu")
+    args = (core.ep_router, torch.from_numpy(dst_r), torch.from_numpy(cands),
+            core.dist, core.port_toward, core.nbr,
+            core.occupancy(torch.from_numpy(nq_count)))
+    kw = dict(ugal_g=True, unreach=UNREACH, big=BIG, occ_cap=OCC_CAP)
+    before = launch_counts()
+    got = ugal_route(*args, **kw)
+    assert launch_counts() == before
+    for g, w in zip(got, ugal_route_ref(*args, **kw)):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    with pytest.raises(ValueError):
+        ugal_route(*args, **kw, kernel_path="cuda")
+    assert launch_counts() == before
 
 
 # ---------------------------------------------------------------------------
