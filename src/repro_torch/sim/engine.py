@@ -3,11 +3,13 @@ from `repro.sim.engine`.
 
 `SwitchCore` holds one fabric's tables on a device and runs the parts
 of a cycle that every engine shares: the credit view (`occupancy`),
-per-flit route choice (`route_decision`: MIN, VAL, UGAL-L, UGAL-G; the
-whole UGAL choice in one launch of the CUDA kernel
+per-flit route choice (`route_decision`: MIN, ECMP, VAL, UGAL-L,
+UGAL-G; the whole UGAL choice in one launch of the CUDA kernel
 `repro_torch.kernels.ugal.ugal_route_cuda` on the card), tail enqueue
 into the source queues (`inject`), and `alloc`: one W-slot window of
-every queue, route desires for all W slots at once, W rounds of
+every queue, route desires for all W slots at once (on tables with
+equal-cost sets, the least-occupied equal-cost port: ECMP's choice,
+and MIN's fallback from a dead port), W rounds of
 rotating-priority allocation (the CUDA kernel
 `repro_torch.kernels.alloc` on the card), then arrivals and shift-down
 compaction.  The model and the two identities that make the
@@ -22,8 +24,8 @@ tensors they are given and return them), which saves a copy of the
 source named by cycle and stream (`repro_torch.sim.random`), not from a
 split PRNG key.
 
-Not ported yet: ECMP (ROADMAP Queue 1 #4), source routing (#8),
-telemetry (#9), the lane axis (#7).
+Not ported yet: source routing (ROADMAP Queue 1 #8), telemetry (#9),
+the lane axis (#7).
 
 Indexing.  jnp clamps an out-of-range gather index and wraps a negative
 one; torch raises on an index past the end and wraps a negative one.
@@ -63,7 +65,7 @@ BIG = 1 << 30
 # overflow int32 when multiplied by a path length, while still dwarfing
 # any real queue depth
 OCC_CAP = 1 << 20
-MODES = ("min", "val", "ugal_l", "ugal_g")
+MODES = ("min", "val", "ugal_l", "ugal_g", "ecmp")
 
 I32 = torch.int32
 
@@ -78,7 +80,7 @@ class SimConfig:
     vcs: int = 4
     q_net: int = 16                   # per-(port, VC) buffer
     q_src: int = 64
-    mode: str = "min"                 # min | val | ugal_l | ugal_g
+    mode: str = "min"                 # min | val | ugal_l | ugal_g | ecmp
     n_val_candidates: int = 4         # §IV-C: 4 works best
     lookahead: int = 4                # allocation window W
     seed: int = 0
@@ -113,11 +115,6 @@ class SimResult:
                 or self.dropped_at_source > 0)
 
 
-_NOT_PORTED = {
-    "ecmp": "ROADMAP Queue 1 #4 (ECMP sets and the dead-port fallback)",
-}
-
-
 def check_i32(**arrays) -> None:
     """Every array of the engine state stays int32: torch promotes int32
     to int64 where jnp does not (sums, cumsums, arange), and the packed
@@ -131,9 +128,6 @@ class SwitchCore:
     one device."""
 
     def __init__(self, tables: SimTables, cfg: SimConfig, device=None):
-        if cfg.mode in _NOT_PORTED:
-            raise NotImplementedError(
-                f"mode={cfg.mode!r} is not ported yet: {_NOT_PORTED[cfg.mode]}")
         if cfg.mode not in MODES:
             raise ValueError(f"unknown routing mode {cfg.mode!r}")
         if cfg.kernel_path not in KERNEL_PATHS:
@@ -162,6 +156,13 @@ class SwitchCore:
         self.port_toward = on_dev(tables.port_toward, torch.int16)
         self.dist = on_dev(tables.dist, torch.int16)
         self.ep_router = on_dev(tables.ep_router, I32)
+        # equal-cost ports, one [M] row per (router, target) pair:
+        # mode="ecmp" picks among them, every other mode falls back to
+        # them from a dead MIN port; without them "ecmp" is MIN
+        self.has_ecmp = tables.ecmp_ports is not None
+        if self.has_ecmp:
+            self.ecmp_rows = on_dev(
+                tables.ecmp_ports.reshape(N * N, -1), torch.int16)
         # clamped once: dead/pad ports (-1) read router 0, port 0 and are
         # masked by nbr >= 0 wherever they matter
         self.nbr_c = self.nbr.clamp(min=0)
@@ -219,12 +220,13 @@ class SwitchCore:
     def route_decision(self, dst_r, occ, source=None):
         """Per-endpoint injection-time path choice -> (inter, phase).
 
-        MIN draws nothing: the packet heads for its destination in phase
-        1.  VAL draws one intermediate per endpoint, UGAL C candidates,
-        from `source`'s ``route`` stream (`repro_torch.sim.random`)."""
+        MIN and ECMP draw nothing: the packet heads for its destination
+        in phase 1 (ECMP picks its ports hop by hop, in `_desires`).  VAL
+        draws one intermediate per endpoint, UGAL C candidates, from
+        `source`'s ``route`` stream (`repro_torch.sim.random`)."""
         mode, C, N, n_ep = self.mode, self.C, self.N, self.n_ep
         src_r = self.ep_router
-        if mode == "min":
+        if mode in ("min", "ecmp"):
             return dst_r, torch.ones_like(dst_r)
         if mode == "val":
             i = bump_candidates(source.randint("route", (n_ep,), 0, N),
@@ -244,13 +246,43 @@ class SwitchCore:
                           unreach=int(UNREACH), big=BIG, occ_cap=OCC_CAP,
                           kernel_path=self.kernel_path)
 
-    def _desires(self, pkt, router):
+    def ecmp_port(self, router, tgt, occ):
+        """The least-occupied port of the equal-cost set toward `tgt`
+        (the first of them on a tie, as jnp.argmin), -1 where the set is
+        empty.  An empty slot scores BIG, and so does a dead port
+        through `occupancy`.  `router` broadcasts against `tgt`.  Plain
+        PyTorch, as the reference computes it in jnp: one gather of the
+        [slots, M] rows, int16 ports and int32 scores and indices."""
+        P = self.P
+        router = router.expand(tgt.shape)
+        opts = self.ecmp_rows.index_select(
+            0, (router * self.N + tgt).reshape(-1))            # [S, M] int16
+        at = (router * P).reshape(-1, 1) + opts.clamp(min=0)   # int32
+        score = occ.reshape(-1).index_select(0, at.reshape(-1)).view(
+            at.shape)
+        del at
+        score.masked_fill_(opts < 0, BIG)
+        pick = score.argmin(dim=1, keepdim=True)
+        return opts.gather(1, pick).view(tgt.shape).to(I32)
+
+    def _desires(self, pkt, router, occ):
         """Table-routed desires of window records: (out port, out VC,
-        eject).  `router` broadcasts against the records' leading dims."""
+        eject).  `router` broadcasts against the records' leading dims;
+        `occ` is the cycle's credit view, which the ECMP choice reads."""
         dst, inter, phase = pk_dst(pkt), pk_inter(pkt), pk_phase(pkt)
         tgt = torch.where(phase == 1, dst, inter).clamp(0, self.N - 1)
         eject = (dst == router) & (phase == 1)
         out_port = self.port_toward[router, tgt].to(I32)
+        if self.has_ecmp:
+            alt = self.ecmp_port(router, tgt, occ)
+            if self.mode != "ecmp":
+                # MIN first; the equal-cost alternate only where the MIN
+                # port is dead (a failure mask on tables whose routes
+                # have not re-converged)
+                dead = (out_port >= 0) & (
+                    self.nbr[router, out_port.clamp(min=0)] < 0)
+                alt = torch.where(dead, alt, out_port)
+            out_port = torch.where(eject, -1, alt)
         out_vc = pk_hops(pkt).clamp(max=self.V - 1)
         return out_port, out_vc, eject
 
@@ -289,8 +321,8 @@ class SwitchCore:
 
         r_b = self.routers_n[:, None, None, None]               # [N,1,1,1]
         e_b = self.ep_router[:, None]                           # [n_ep,1]
-        n_out, n_vc, n_ej = self._desires(win_net, r_b)
-        s_out, s_vc, s_ej = self._desires(win_src, e_b)
+        n_out, n_vc, n_ej = self._desires(win_net, r_b, occ)
+        s_out, s_vc, s_ej = self._desires(win_src, e_b, occ)
 
         def space_of(router, out, vc):
             o = out.clamp(0, P - 1)

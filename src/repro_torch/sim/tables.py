@@ -8,8 +8,10 @@ the port numbering of the HEALTHY fabric, dead ports as -1 in
 `nbr`/`rev_port`, and `port_toward`/`dist` from the re-converged
 routing; `with_failures(..., rebuild=False)` only kills the ports and
 keeps the stale route tables (the transient before routing
-re-converges).  ECMP sets and lane stacking (`stack`/`lane`) are not
-ported yet (ROADMAP Queue 1 #4, #7).
+re-converges).  With ``ecmp=True`` the tables also hold every
+equal-cost first-hop port (`ecmp_ports`), built one router at a time
+in numpy.  Lane stacking (`stack`/`lane`) is not ported yet (ROADMAP
+Queue 1 #7).
 """
 
 from __future__ import annotations
@@ -42,6 +44,9 @@ class SimTables:
     dist: np.ndarray              # [N, N] int16 hops
     ep_router: np.ndarray         # [N_ep] int32 router id of each endpoint
     failed_edges: Optional[np.ndarray] = None  # [K, 2] mask these tables saw
+    # [N, N, M] int16 equal-cost first-hop ports in ascending neighbour
+    # order, -1 padded (build(ecmp=True)), or None
+    ecmp_ports: Optional[np.ndarray] = None
 
     # the arrays a table set is made of, beside its topology
     FIELDS = ("nbr", "rev_port", "port_toward", "dist", "ep_router")
@@ -52,7 +57,8 @@ class SimTables:
 
     @classmethod
     def from_numpy(cls, topo: Topology, *, nbr, rev_port, port_toward,
-                   dist, ep_router, failed_edges=None) -> "SimTables":
+                   dist, ep_router, failed_edges=None,
+                   ecmp_ports=None) -> "SimTables":
         """Tables from numpy arrays built elsewhere -- e.g. the fields of
         a reference `repro.sim.SimTables`, so that both engines can run
         on identical tables.  Dtypes are normalised to the engine's."""
@@ -63,19 +69,18 @@ class SimTables:
                    port_toward=np.asarray(port_toward, dtype=np.int16),
                    dist=np.asarray(dist, dtype=np.int16),
                    ep_router=np.asarray(ep_router, dtype=np.int32),
-                   failed_edges=failed_edges)
+                   failed_edges=failed_edges,
+                   ecmp_ports=(None if ecmp_ports is None else
+                               np.asarray(ecmp_ports, dtype=np.int16)))
 
     @classmethod
     def build(cls, topo: Topology, rt: Optional[RoutingTables] = None,
               device=None, kernel_path: str = "auto", ecmp: bool = False,
               failed_edges=None) -> "SimTables":
-        """Tables of the fabric, healthy or with `failed_edges` removed.
-        Without `rt`, routing is built on `device` (default ``cuda``;
-        see `build_routing`)."""
-        if ecmp:
-            raise NotImplementedError(
-                "equal-cost (ECMP) port sets are not ported yet: "
-                "ROADMAP Queue 1 #4")
+        """Tables of the fabric, healthy or with `failed_edges` removed;
+        with `ecmp`, also the equal-cost port sets.  Without `rt`,
+        routing is built on `device` (default ``cuda``; see
+        `build_routing`)."""
         if failed_edges is not None:
             failed_edges = normalize_failed_edges(failed_edges, topo)
         if rt is not None and failed_edges is not None:
@@ -89,7 +94,11 @@ class SimTables:
                     "rt was not built with the given failed_edges mask")
         rt = rt or build_routing(topo, device=device,
                                  kernel_path=kernel_path,
-                                 failed_edges=failed_edges)
+                                 failed_edges=failed_edges,
+                                 equal_cost_sets=ecmp)
+        if ecmp and rt.next_hops_all is None:
+            raise ValueError("ecmp=True needs rt built with "
+                             "equal_cost_sets=True")
         if failed_edges is None and rt.failed_edges is not None:
             failed_edges = rt.failed_edges
         n = topo.n_routers
@@ -118,6 +127,16 @@ class SimTables:
         mask = (nh.ravel() != rr) & (nh.ravel() >= 0)
         port_toward[rr[mask], tt[mask]] = port_of[rr[mask], nh.ravel()[mask]]
 
+        # slot i of (r, t) holds the port of the i-th equal-cost next hop
+        # (the reference's nested loop, src/repro/sim/tables.py:176-187)
+        ecmp_ports = None
+        if ecmp:
+            sets = rt.next_hops_all.padded                 # [n, n, M]
+            ecmp_ports = np.full(sets.shape, -1, dtype=np.int16)
+            for r in range(n):
+                live = sets[r] >= 0
+                ecmp_ports[r][live] = port_of[r, sets[r][live]]
+
         if topo.endpoint_mask is not None:
             ep_routers = np.nonzero(topo.endpoint_mask)[0]
         else:
@@ -127,7 +146,7 @@ class SimTables:
         return cls(topo=topo, n_routers=n, P=P, p=topo.p, nbr=nbr,
                    rev_port=rev_port, port_toward=port_toward,
                    dist=rt.dist.astype(np.int16), ep_router=ep_router,
-                   failed_edges=failed_edges)
+                   failed_edges=failed_edges, ecmp_ports=ecmp_ports)
 
     def with_failures(self, failed_edges, rebuild: bool = True,
                       device=None, kernel_path: str = "auto"
@@ -135,16 +154,21 @@ class SimTables:
         """Degraded copy of these tables under an (additional) link mask.
 
         rebuild=True re-converges routing on the masked adjacency (the
-        steady degraded state; routing runs on `device` as in `build`).
-        rebuild=False only marks the dead ports (-1 in nbr/rev_port) and
-        keeps the stale port_toward / dist -- the unconverged transient.
+        steady degraded state; routing runs on `device` as in `build`,
+        with the ECMP sets where these tables have them).  rebuild=False
+        only marks the dead ports (-1 in nbr/rev_port) and keeps the
+        stale port_toward / ecmp_ports / dist -- the unconverged
+        transient, where delivery relies on the engine's dead-port ECMP
+        fallback.
         """
         fe = normalize_failed_edges(failed_edges, self.topo)
         if self.failed_edges is not None and len(self.failed_edges):
             fe = np.concatenate([self.failed_edges, fe], axis=0)
         if rebuild:
             return SimTables.build(self.topo, device=device,
-                                   kernel_path=kernel_path, failed_edges=fe)
+                                   kernel_path=kernel_path,
+                                   ecmp=self.ecmp_ports is not None,
+                                   failed_edges=fe)
         n = self.n_routers
         dead = np.zeros((n, n), dtype=bool)
         dead[fe[:, 0], fe[:, 1]] = True

@@ -9,8 +9,9 @@ Stochastic patterns draw from the random source's ``dst`` stream
 patterns activate the largest power-of-two subset of endpoints (paper
 §V-B: 8192 of ~10K).  The worst case for Slim Fly keeps the reference's
 numpy link search seeded with `default_rng(seed)`, so its pairing is
-the reference's.  `worstcase_df` needs the Dragonfly topology, which is
-not ported yet (ROADMAP Queue 1 #2).
+the reference's.  The worst case for Dragonfly (`worstcase_df`) draws
+each endpoint's offset in the next group from the ``dst`` stream; it
+needs the Dragonfly's group parameters (`topo.params` "a" and "g").
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from .tables import SimTables
 __all__ = ["PATTERNS", "Traffic", "make_traffic"]
 
 PATTERNS = ("uniform", "shuffle", "bitrev", "bitcomp", "shift",
-            "worstcase_sf")
+            "worstcase_sf", "worstcase_df")
 I32 = torch.int32
 
 
@@ -99,9 +100,7 @@ def make_traffic(tables: SimTables, pattern: str, seed: int = 0) -> Traffic:
         return _worstcase_sf(tables, seed)
 
     if pattern == "worstcase_df":
-        raise NotImplementedError(
-            "worstcase_df needs the Dragonfly topology, which is not ported "
-            "yet: ROADMAP Queue 1 #2")
+        return _worstcase_df(tables)
 
     raise ValueError(f"unknown traffic pattern {pattern!r}")
 
@@ -164,3 +163,26 @@ def _worstcase_sf(tables: SimTables, seed: int = 0) -> Traffic:
             active[src] = True
 
     return _perm_traffic("worstcase_sf", dst_of, active)
+
+
+def _worstcase_df(tables: SimTables) -> Traffic:
+    """Kim et al. §4.2 adversarial: every endpoint of group g sends to a
+    random endpoint of group g+1, overloading one global channel per
+    group.  The offset in the target group is one draw on [0, a·p) per
+    endpoint and cycle."""
+    topo = tables.topo
+    a = topo.params["a"]
+    g = topo.params["g"]
+    n_ep = tables.n_endpoints
+    eps_per_grp = a * tables.p
+    grp_of_ep = (np.arange(n_ep) // tables.p) // a
+
+    def make_sampler(dev):
+        base = torch.as_tensor(((grp_of_ep + 1) % g) * eps_per_grp,
+                               dtype=I32, device=dev)
+
+        def sample(source):
+            return base + source.randint("dst", (n_ep,), 0, eps_per_grp)
+        return sample
+
+    return Traffic("worstcase_df", np.ones(n_ep, dtype=bool), make_sampler)

@@ -1,6 +1,6 @@
 """Closed-loop dependency-triggered workload engine, ported from
-`repro.sim.workloads.closed_loop` (single job, table-routed MIN, VAL,
-UGAL-L and UGAL-G).
+`repro.sim.workloads.closed_loop` (single job, table-routed MIN, ECMP,
+VAL, UGAL-L and UGAL-G).
 
 Each cycle the ready set is re-derived as a dense mask over the DAG's
 messages from the carried delivered-flit counters, every endpoint
@@ -10,10 +10,12 @@ count reaches its size.  The reference's `lax.scan` over compiled
 chunks becomes a Python loop over one step; the host reads the device
 once per chunk of `cfg.chunk` cycles, to stop at the chunk in which the
 last message completes, as the reference does.  The reference splits a
-PRNG key every cycle but never uses it under MIN; the port has no key.
+PRNG key every cycle and uses it only under VAL and UGAL; the port asks
+its random source for one ``route`` draw per cycle in those modes
+(`repro_torch.sim.random`) and for none under MIN and ECMP.
 
-Not ported yet: VAL/UGAL/ECMP (ROADMAP Queue 1 #6), source routing and
-the multi-job layer `run_jobs` (#8), telemetry (#9), lane sweeps (#7).
+Not ported yet: source routing and the multi-job layer `run_jobs`
+(ROADMAP Queue 1 #8), telemetry (#9), lane sweeps (#7).
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ class WorkloadSimConfig:
     vcs: int = 4
     q_net: int = 16
     q_src: int = 64
-    mode: str = "min"                 # min | val | ugal_l | ugal_g
+    mode: str = "min"                 # min | val | ugal_l | ugal_g | ecmp
     routing: str = "table"            # "source": ROADMAP Queue 1 #8
     n_val_candidates: int = 4
     lookahead: int = 4

@@ -149,24 +149,15 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 UNPORTED = {
-    "run_workload-ecmp": lambda tt: run_workload(
-        tt, ring_all_reduce(4, 2), WorkloadSimConfig(mode="ecmp"),
-        device="cpu"),
     "run_workload-source": lambda tt: run_workload(
         tt, ring_all_reduce(4, 2), WorkloadSimConfig(routing="source"),
         device="cpu"),
     "run_workload-telemetry": lambda tt: run_workload(
         tt, ring_all_reduce(4, 2), WorkloadSimConfig(telemetry=True),
         device="cpu"),
-    "simulate-ecmp": lambda tt: simulate(
-        tt, make_traffic(tt, "uniform"), SimConfig(mode="ecmp", cycles=2),
-        device="cpu"),
     "simulate-telemetry": lambda tt: simulate(
         tt, make_traffic(tt, "uniform"), SimConfig(telemetry=True, cycles=2),
         device="cpu"),
-    "worstcase_df": lambda tt: make_traffic(tt, "worstcase_df"),
-    "tables-ecmp": lambda tt: SimTables.build(tt.topo, device="cpu",
-                                              ecmp=True),
 }
 
 
@@ -175,3 +166,32 @@ def test_unported_options_raise(case):
     _, tt = _tables(5)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         UNPORTED[case](tt)
+
+
+# ---------------------------------------------------------------------------
+# Fig 6's other fabrics: FT-3 under ECMP, the Dragonfly under MIN (no
+# draws in either mode, so no replay is needed)
+
+FABRIC_CASES = [
+    # (builder, kwargs, ecmp tables, workload, cfg kwargs)
+    ("build_fattree3", dict(p=4), True, lambda: ring_all_reduce(16, 8),
+     dict(mode="ecmp", placement="linear", chunk=128)),
+    ("build_fattree3", dict(p=4), True, lambda: stencil((4, 4), 8, iters=2),
+     dict(mode="ecmp", placement="spread", chunk=64, seed=3)),
+    ("build_dragonfly", dict(h=2), False, lambda: stencil((4, 4), 8, iters=2),
+     dict(mode="min", placement="blocked", chunk=100, seed=1)),
+]
+
+
+@pytest.mark.parametrize("case", range(len(FABRIC_CASES)))
+def test_run_workload_on_fabrics_matches_live_reference(case):
+    import repro.core.topologies as jtopos
+    import repro_torch.core.topologies as ttopos
+    fn, kw_topo, ecmp, wl_fn, kw = FABRIC_CASES[case]
+    jt = JaxSimTables.build(getattr(jtopos, fn)(**kw_topo), ecmp=ecmp)
+    tt = SimTables.build(getattr(ttopos, fn)(**kw_topo), device="cpu",
+                         ecmp=ecmp)
+    ref = jax_run_workload(jt, wl_fn(), JaxCfg(kernel_path="ref", **kw))
+    port = run_workload(tt, wl_fn(), WorkloadSimConfig(**kw), device="cpu")
+    assert ref.completed
+    _assert_results_equal(port, ref)

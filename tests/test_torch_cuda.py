@@ -600,3 +600,118 @@ def test_serving_kernel_path_matches_plain_path(cuda_device):
         assert launched % cfg.n_layers == 0
         assert (launched > 0) == (path == "cuda")
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# Fig 6's other fabrics: the Dragonfly and the 3-level fat tree (ECMP)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cycle", [17, 199_999])
+def test_alloc_cuda_matches_plain_at_fat_tree_shape(cuda_device, cycle):
+    """FT-3 p=22's shape: P = 44, V = 4, PE = 22 (K = 198, seven requests
+    per lane), two thirds of the routers without endpoints (epr = -1,
+    masked by their empty source queues only)."""
+    cycle, arrs, kw = _alloc_inputs(22, N=1452, P=44, V=4, PE=22, W=6,
+                                    cycle=cycle, p_has=1 / 3)
+    assert kw["P"] * kw["V"] + kw["PE"] == 198
+    want = _alloc_matches_plain(cuda_device, cycle, arrs, kw)
+    assert int((want[0] >= 0).sum()) > 0
+    assert int((want[4][:, 32:] >= 0).sum()) > 0
+
+
+def _fat_tree_cores(device, kind):
+    """SwitchCores of FT-3 p=6 with ECMP tables ('healthy', or 'stale':
+    10% of the links dead, routes not re-converged) on `device` and on
+    the CPU."""
+    from repro_torch.core.topologies import build_fattree3
+    from repro_torch.sim import SimConfig, SimTables, SwitchCore
+    tab = SimTables.build(build_fattree3(p=6), device="cpu", ecmp=True)
+    if kind == "stale":
+        tab = tab.with_failures(failure_mask(tab.topo, seed=6,
+                                             cut_router=False),
+                                rebuild=False)
+    cfg = SimConfig(mode="ecmp")
+    return tab, SwitchCore(tab, cfg, device=device), SwitchCore(
+        tab, cfg, device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["healthy", "stale"])
+def test_ecmp_choice_on_the_card_matches_the_cpu(cuda_device, kind):
+    """The ECMP choice (plain PyTorch) takes the same first minimum on the
+    card as on the CPU, for every (router, target) pair, under forced
+    ties (empty queues, depths in {0, 1}) and spread depths."""
+    tab, core, core_cpu = _fat_tree_cores(cuda_device, kind)
+    N, P = tab.n_routers, tab.P
+    r = torch.arange(N, dtype=torch.int32).repeat_interleave(N)
+    t = torch.arange(N, dtype=torch.int32).repeat(N)
+    rng = np.random.default_rng(1)
+    for high in (1, 2, 17):
+        nq = torch.from_numpy(rng.integers(0, high, (N, P, 4)).astype(
+            np.int32))
+        occ_cpu = core_cpu.occupancy(nq)
+        want = core_cpu.ecmp_port(r, t, occ_cpu)
+        got = core.ecmp_port(r.to(cuda_device), t.to(cuda_device),
+                             core.occupancy(nq.to(cuda_device)))
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+        if high == 1 and kind == "healthy":
+            first = torch.from_numpy(tab.ecmp_ports.reshape(N * N, -1)[:, 0])
+            torch.testing.assert_close(want, first.to(torch.int32),
+                                       rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["df_ugal_l_worstcase", "ft_ecmp",
+                                  "ft_stale_min", "ft_stale_ecmp"])
+def test_fabric_open_loop_kernel_path_matches_plain_path(cuda_device, case):
+    """The open loop on the Dragonfly (h=2, UGAL-L on worstcase_df) and on
+    the fat tree (p=4, ECMP tables; healthy, and stale: MIN's dead-port
+    fallback and ECMP around dead ports): kernels against plain
+    versions, every result field equal."""
+    from repro_torch.core.topologies import build_dragonfly, build_fattree3
+    from repro_torch.kernels import launch_counts
+    from repro_torch.sim import SimConfig, SimTables, make_traffic, simulate
+    if case.startswith("df"):
+        tab = SimTables.build(build_dragonfly(2), device=cuda_device)
+        pattern, mode = "worstcase_df", "ugal_l"
+    else:
+        tab = SimTables.build(build_fattree3(p=4), device=cuda_device,
+                              ecmp=True)
+        pattern, mode = "uniform", case.split("_")[-1]
+        if "stale" in case:
+            tab = tab.with_failures(failure_mask(tab.topo, seed=4,
+                                                 cut_router=False),
+                                    rebuild=False)
+    tr = make_traffic(tab, pattern)
+    runs = []
+    for path in ("cuda", "ref"):
+        before = launch_counts()
+        runs.append(simulate(tab, tr, SimConfig(
+            injection_rate=0.5, cycles=300, warmup=100, mode=mode,
+            lookahead=6, seed=3, kernel_path=path)))
+        after = launch_counts()
+        assert after["alloc_rounds"] - before["alloc_rounds"] == (
+            300 if path == "cuda" else 0)
+        assert after["ugal_route"] - before["ugal_route"] == (
+            300 if path == "cuda" and mode == "ugal_l" else 0)
+    assert runs[0].delivered > 0
+    for f, v in vars(runs[0]).items():
+        np.testing.assert_array_equal(v, getattr(runs[1], f), err_msg=f)
+
+
+@pytest.mark.cuda
+def test_fabric_closed_loop_kernel_path_matches_plain_path(cuda_device):
+    """The closed loop on the fat tree under ECMP (ring all-reduce):
+    kernels against plain versions, every result array equal."""
+    from repro_torch.core.topologies import build_fattree3
+    from repro_torch.sim import SimTables
+    from repro_torch.sim.workloads import (WorkloadSimConfig,
+                                           ring_all_reduce, run_workload)
+    tab = SimTables.build(build_fattree3(p=4), device=cuda_device, ecmp=True)
+    runs = [run_workload(tab, ring_all_reduce(16, 8),
+                         WorkloadSimConfig(mode="ecmp", chunk=128,
+                                           kernel_path=path))
+            for path in ("cuda", "ref")]
+    assert runs[0].completed
+    for f, v in vars(runs[0]).items():
+        np.testing.assert_array_equal(v, getattr(runs[1], f), err_msg=f)

@@ -32,23 +32,36 @@ from test_torch_ugal import both_tables, one_torch_thread  # noqa: F401
 
 # the raw draw each pattern takes from the `dst` stream, and each mode
 # from the `route` stream (None: no draw)
-DST_DRAW = {"uniform": "randint", "shift": "bernoulli"}
+DST_DRAW = {"uniform": "randint", "worstcase_df": "randint",
+            "shift": "bernoulli"}
 ROUTE_DRAW = {"val": "one", "ugal_l": "cands", "ugal_g": "cands"}
 
 
-def open_loop_draws(seed, cycles, rate, n_ep, N, C, pattern, mode):
+def dst_high(tables, pattern):
+    """Upper bound of a pattern's raw randint draw: uniform draws on
+    [0, n_ep - 1) (then skips the source's own id), worstcase_df the
+    offset in the next group on [0, a * p)."""
+    if pattern == "worstcase_df":
+        return tables.topo.params["a"] * tables.p
+    return tables.n_endpoints - 1
+
+
+def open_loop_draws(seed, cycles, rate, n_ep, N, C, pattern, mode,
+                    high=None):
     """The reference's open-loop draws: per cycle
     `key, k_inj, k_dst, k_rt = split(key, 4)` (src/repro/sim/engine.py),
-    then the injection coins, the pattern's raw destination draw and the
-    mode's route draw, recorded for a `ReplaySource`."""
+    then the injection coins, the pattern's raw destination draw (a
+    randint on [0, high), default uniform's n_ep - 1) and the mode's
+    route draw, recorded for a `ReplaySource`."""
     dst_kind, rt_kind = DST_DRAW.get(pattern), ROUTE_DRAW.get(mode)
     rt_shape = (n_ep,) if rt_kind == "one" else (n_ep, C)
+    high = n_ep - 1 if high is None else high
 
     def step(rate32, key, _):
         key, k_inj, k_dst, k_rt = jax.random.split(key, 4)
         coin = jax.random.bernoulli(k_inj, rate32, (n_ep,))
         if dst_kind == "randint":
-            dst = jax.random.randint(k_dst, (n_ep,), 0, n_ep - 1)
+            dst = jax.random.randint(k_dst, (n_ep,), 0, high)
         elif dst_kind == "bernoulli":
             dst = jax.random.bernoulli(k_dst, 0.5, (n_ep,))
         else:
@@ -65,7 +78,7 @@ def open_loop_draws(seed, cycles, rate, n_ep, N, C, pattern, mode):
     for c in range(cycles):
         draws[(c, "inj")] = Draw("bernoulli", rate, coin[c])
         if dst_kind == "randint":
-            draws[(c, "dst")] = Draw("randint", (0, n_ep - 1), dst[c])
+            draws[(c, "dst")] = Draw("randint", (0, high), dst[c])
         elif dst_kind == "bernoulli":
             draws[(c, "dst")] = Draw("bernoulli", 0.5, dst[c])
         if rt_kind:
@@ -89,14 +102,19 @@ def assert_results_equal(port, ref):
 
 
 def run_both(q, kind, pattern, mode, **kw):
-    jt, tt = both_tables(q, kind)
+    return run_both_on(*both_tables(q, kind), pattern, mode, **kw)
+
+
+def run_both_on(jt, tt, pattern, mode, **kw):
+    """The reference's run and the port's, fed the reference's draws, on
+    tables `jt` and `tt` of one fabric."""
     cfg = dict(injection_rate=0.4, cycles=100, warmup=30, mode=mode, seed=5)
     cfg.update(kw)
     ref = jax_simulate(jt, jax_make_traffic(jt, pattern),
                        JaxSimConfig(kernel_path="ref", **cfg))
     src = ReplaySource(open_loop_draws(
         cfg["seed"], cfg["cycles"], cfg["injection_rate"], tt.n_endpoints,
-        tt.n_routers, 4, pattern, mode))
+        tt.n_routers, 4, pattern, mode, high=dst_high(tt, pattern)))
     port = simulate(tt, make_traffic(tt, pattern), SimConfig(**cfg),
                     device="cpu", source=src)
     return port, ref
