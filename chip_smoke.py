@@ -125,6 +125,30 @@ Phases, one JSON line each; any failure exits non-zero:
     ECMP, and MIN on stale FT-3 ECMP tables (a failure mask, routes not
     re-converged: MIN's dead-port fallback); closed loop FT-3 ECMP ring
     all-reduce -- every field and per-cycle array equal.
+20. sweep_kernels: the kernels' lane axis against their plain versions,
+    exact equality: allocation on phase 7's captured q=19 cycles stacked
+    to five lanes with one cycle per lane (W=6 and W=4), and each lane
+    against a single-lane launch; the UGAL route kernel on five lanes
+    built from phase 7's captured cycles, UGAL-L and UGAL-G, on shared
+    healthy tables and on stacked ones (healthy, phase 9's masked and
+    stale tables); times at L = 1 and L = 5 beside the byte bounds;
+21. sweep (this slice's main path, at full width): Fig 6a's Slim Fly
+    curve, q=19, uniform, UGAL-L, rates 0.1/0.3/0.5/0.7/0.9 as five lanes
+    of ONE sweep_simulate, seed 0, 3000 cycles, 1000 warm-up, lookahead
+    6: flit conservation per lane on every cycle, allocation and the
+    UGAL route kernel launched once per cycle for all five lanes (3000
+    each), the 0.5 lane equal to phase 5's run field for field (and so
+    held to GOLDEN_OPEN); cycles/s and peak memory;
+22. sweep_paths_equal: at q=7, kernel path against plain path: a
+    rate-lane and a stacked-mask sweep (healthy, masked, stale; UGAL-G)
+    and a closed-loop seed/mask sweep (UGAL-L): every field equal, and
+    every lane equal to its sequential run;
+23. sweep_closed: the q=19 stencil of phase 4 on stacked tables, healthy
+    plus two 5% failure samples (routes re-converged), MIN: every lane
+    completes and the healthy lane's outcome equals GOLDEN_Q19;
+24. fig6_driver: the port's Fig 6 driver (`repro_torch.bench.fig6`) in
+    smoke mode: its row names equal the reference's (FIG6_SMOKE_ROWS),
+    each curve's wall seconds, cycles/s and peak memory.
 
 Then a line {"kernels": [...]} with each kernel's launches on its main
 path (the open loop's for the simulator's three kernels, the serve
@@ -136,11 +160,14 @@ W=4; the UGAL row is the fused route kernel's, with the contract
 kernel's time under contract_ms); each simulator row also carries, under
 "fig6", its launches in the three phase-16 runs, its largest difference
 from the plain version at the new shapes (phase 18) and its times there;
-and the last line
+the allocation and UGAL rows also carry, under "sweep", their launches
+in the five-lane sweep (phase 21) and phase 20's lane-axis difference
+and times at L = 1 and L = 5; and the last line
 {"ok": true, "device": {...}}.  Without CUDA, or without the repository
 around it, it fails before printing any result.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -554,21 +581,49 @@ def ugal_route_bytes(src, dst, cands, dist, port_toward, nbr, ugal_g):
 
 def alloc_times(case) -> dict:
     """Device time of the allocation kernel and of its plain version on
-    one (cycle, arrays, kwargs) case, beside the byte bound: every input
-    read once, every output written once."""
+    one (cycle, arrays, kwargs) case -- single-lane, or L lanes with one
+    cycle each -- beside the byte bound: every input read once (the
+    cycles from a device array, as the engine passes them), every output
+    written once."""
+    import torch
     from repro_torch.kernels.alloc import alloc_rounds_cuda, alloc_rounds_ref
     cycle, arrays, kw = case
-    ms = time_ms(lambda: alloc_rounds_cuda(cycle, *arrays, **kw), iters=200)
-    plain = time_ms(lambda: alloc_rounds_ref(cycle, *arrays, **kw), iters=20)
-    N, PV, W, PE, P = (arrays[0].shape[0], arrays[0].shape[1],
-                       arrays[0].shape[2], arrays[4].shape[1], kw["P"])
-    nbytes = 4 * (N * (3 * PV * W + PV + 3 * PE * W + PE + 1)
-                  + N * (2 * PV + 2 * PE + P))
+    cycles = list(cycle) if isinstance(cycle, (list, tuple)) else [cycle]
+    cdev = torch.tensor(cycles, dtype=torch.int32, device=arrays[0].device)
+    ms = time_ms(lambda: alloc_rounds_cuda(cycle, *arrays, **kw,
+                                           cycle_dev=cdev), iters=200)
+    plain = time_ms(lambda: alloc_rounds_ref(cycle, *arrays, **kw,
+                                             cycle_dev=cdev), iters=20)
+    L = arrays[3].shape[0] if arrays[3].dim() == 3 else 1
+    N, PV, W = arrays[0].shape[-3:]
+    PE, P = arrays[4].shape[-2], kw["P"]
+    nbytes = 4 * (L * N * (3 * PV * W + PV + 3 * PE * W + PE
+                           + 2 * PV + 2 * PE + P) + N + len(cycles))
     bound_ms = 1e3 * nbytes / PEAK_BYTES_S
     return dict(ms=ms, plain_ms=plain, bound_ms=bound_ms,
                 bound_share=bound_ms / ms, bytes=nbytes,
-                shape={"N": N, "PV": PV, "PE": PE, "W": W, "K": PV + PE,
-                       "rows_per_lane": (PV + PE + 31) // 32, "R": kw["R"]})
+                shape={"L": L, "N": N, "PV": PV, "PE": PE, "W": W,
+                       "K": PV + PE, "rows_per_lane": (PV + PE + 31) // 32,
+                       "R": kw["R"]})
+
+
+def one_lane(arrays, lane_args):
+    """The engine's single-run arrays ([1, ...] on the lane axis at the
+    positions `lane_args`) as a single-lane kernel call takes them."""
+    return [x[0].clone() if i in lane_args else x.clone()
+            for i, x in enumerate(arrays)]
+
+
+# positions of the lane-batched arguments of alloc_rounds (the eight
+# request arrays; not epr) and of ugal_route (dst_r, cands, occ)
+ALLOC_LANE_ARGS = range(8)
+ROUTE_LANE_ARGS = (1, 2, 6)
+
+
+def alloc_kw(kw) -> dict:
+    """A captured allocation call's keywords without the dispatch ones."""
+    return {k: v for k, v in kw.items() if k not in ("kernel_path",
+                                                      "cycle_dev")}
 
 
 def minplus_times(d0, sm_max_mhz: float) -> dict:
@@ -1041,22 +1096,22 @@ def fig6_phases(dev, sm_max_mhz: float) -> dict:
 
     def capture_alloc(cycle, *arrays, **kw):
         if cycle == snap:
-            cap_alloc[which[0]] = (cycle, [x.clone() for x in arrays],
-                                   {k: v for k, v in kw.items()
-                                    if k != "kernel_path"})
+            cap_alloc[which[0]] = (cycle, one_lane(arrays, ALLOC_LANE_ARGS),
+                                   alloc_kw(kw))
         return real_alloc(cycle, *arrays, **kw)
 
     def capture_route(*arrays, **kw):
         if route_calls[0] == snap:
-            cap_route.append([x.clone() for x in arrays])
+            cap_route.append(one_lane(arrays, ROUTE_LANE_ARGS))
         route_calls[0] += 1
         return real_route(*arrays, **kw)
 
-    def capture_ecmp(core, router, tgt, occ):
+    def capture_ecmp(core, router, tgt, occ, *rows):
+        # one lane on shared tables: the table rows are the state rows
         if ecmp_calls[0] in (2 * snap, 2 * snap + 1):
             cap_ecmp.append((core, router.clone(), tgt.clone(), occ.clone()))
         ecmp_calls[0] += 1
-        return real_ecmp(core, router, tgt, occ)
+        return real_ecmp(core, router, tgt, occ, *rows)
     engine.alloc_rounds, engine.ugal_route = capture_alloc, capture_route
     SwitchCore.ecmp_port = capture_ecmp
     try:
@@ -1230,6 +1285,279 @@ def fig6_phases(dev, sm_max_mhz: float) -> dict:
     }
 
 
+# Phase 24: the row names of the reference's Fig 6 smoke mode
+# (benchmarks/fig6_perf.py with REPRO_SMOKE=1), which the port's driver
+# must reproduce
+FIG6_SMOKE_ROWS = [
+    "fig6/sf/uniform/min@0.5", "fig6/sf/uniform/val@0.5",
+    "fig6/sf/uniform/ugal_l@0.5", "fig6/sf/uniform/ugal_g@0.5",
+    "fig6/df/uniform/ugal_l@0.5", "fig6/ft3/uniform/ecmp@0.5",
+    "fig6/sf/shift/min@0.3", "fig6/sf/worstcase_sf/ugal_l@0.2"]
+# Phase 21: Fig 6a's Slim Fly curve (benchmarks/fig6_perf.py, full mode)
+SWEEP_RATES = [0.1, 0.3, 0.5, 0.7, 0.9]
+
+
+def same_results(a, b) -> bool:
+    """Every field (scalars and per-cycle arrays) of two results equal."""
+    import numpy as np
+    return all(np.array_equal(v, getattr(b, f)) for f, v in vars(a).items())
+
+
+def stack_lanes(cases, extra_cycle):
+    """Captured single-lane allocation cases stacked on a lane axis, plus
+    one more lane (the last case's arrays at `extra_cycle`): (per-lane
+    cycles, lane-batched arrays, keywords)."""
+    import torch
+    cases = list(cases) + [(extra_cycle,) + tuple(cases[-1][1:])]
+    arrays = ([torch.stack([c[1][i] for c in cases]) for i in range(8)]
+              + [cases[0][1][8]])
+    return [c[0] for c in cases], arrays, cases[0][2]
+
+
+def sweep_phases(dev, ctx: dict) -> dict:
+    """Phases 20-24: the lane axis.  `ctx` holds what earlier phases
+    built (captures, tables, runs).  Returns the kernels line's "sweep"
+    entries and the sweep's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.bench import fig6
+    from repro_torch.kernels.alloc import alloc_rounds_cuda, alloc_rounds_ref
+    from repro_torch.kernels.ugal import ugal_route_cuda, ugal_route_ref
+    from repro_torch.sim import (SimConfig, SimTables, engine, make_traffic,
+                                 simulate, sweep_run_workload, sweep_simulate)
+    from repro_torch.sim.workloads import WorkloadSimConfig, run_workload
+
+    # ---- 20. the kernels' lane axis against their plain versions
+    # allocation: phase 7's captured q=19 cycles stacked to five lanes, one
+    # cycle per lane (the last lane at the cycle limit)
+    err, acases = 0.0, {}
+    for W in (6, 4):
+        caps = [c for c in ctx["captured"] if c[2]["W"] == W]
+        cycles, arrays, kw = stack_lanes(caps, 199_999)
+        acases[W] = (cycles, arrays, kw)
+        got = alloc_rounds_cuda(cycles, *arrays, **kw)
+        for g, w in zip(got, alloc_rounds_ref(cycles, *arrays, **kw)):
+            err = max(err, exact_diff(g, w))
+        for i, c in enumerate(cycles):            # = single-lane calls
+            one = alloc_rounds_cuda(c, *[a[i] for a in arrays[:8]],
+                                    arrays[8], **kw)
+            for g, o in zip(got, one):
+                err = max(err, exact_diff(g[i], o))
+    cycles6, arrays6, kw6 = acases[6]
+    a1 = alloc_times((cycles6[1], [a[1] for a in arrays6[:8]]
+                      + [arrays6[8]], kw6))
+    a5 = alloc_times(acases[6])
+    assert a1["shape"]["L"] == 1 and a5["shape"]["L"] == 5
+
+    # UGAL route: five lanes from phase 7's two captured cycles (lanes 2-4
+    # with fresh candidate draws), on shared healthy tables and on stacked
+    # ones (healthy, phase 9's masked and stale tables)
+    rng = np.random.default_rng(20)
+    caps = ctx["captured_route"]
+    src_r, _, cands0, dist, pt, nbr, _ = caps[0]
+    E, C = cands0.shape
+    N = dist.shape[0]
+    dst5 = torch.stack([caps[i % 2][1] for i in range(5)])
+    cands5 = torch.stack([caps[i % 2][2] if i < 2 else torch.from_numpy(
+        rng.integers(0, N, (E, C)).astype(np.int32)).to(dev)
+        for i in range(5)])
+    occ_h = torch.stack([caps[i % 2][6] for i in range(5)])
+
+    def on_dev(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+    lane_tabs = [(dist, pt, nbr)] + [
+        (on_dev(t.dist, torch.int16), on_dev(t.port_toward, torch.int16),
+         on_dev(t.nbr, torch.int32)) for t in (ctx["tab_d"], ctx["tab_s"])]
+    stacked = [torch.stack([lane_tabs[i % 3][k] for i in range(5)])
+               for k in range(3)]
+    occ_s = torch.where(stacked[2] >= 0, occ_h, BIG_I)
+    rkw = dict(unreach=UNREACH, big=BIG_I, occ_cap=engine.OCC_CAP)
+    rcases = {"shared": (src_r, dst5, cands5, dist, pt, nbr, occ_h),
+              "stacked": (src_r, dst5, cands5, *stacked, occ_s)}
+    n_val = 0
+    for kind, args in rcases.items():
+        for ugal_g in (False, True):
+            got = ugal_route_cuda(*args, ugal_g=ugal_g, **rkw)
+            want = ugal_route_ref(*args, ugal_g=ugal_g, **rkw)
+            for g, w in zip(got, want):
+                err = max(err, exact_diff(g, w))
+            n_val += int((want[1] == 0).sum())
+            for i in range(5):                    # = single-lane calls
+                tab_i = ([t[i] for t in args[3:6]] if kind == "stacked"
+                         else args[3:6])
+                one = ugal_route_cuda(src_r, dst5[i], cands5[i], *tab_i,
+                                      args[6][i], ugal_g=ugal_g, **rkw)
+                for g, o in zip(got, one):
+                    err = max(err, exact_diff(g[i], o))
+    assert n_val > 0, "no Valiant path chosen"
+    u_times = {}
+    for mode, ugal_g in (("ugal_l", False), ("ugal_g", True)):
+        kw = dict(ugal_g=ugal_g, **rkw)
+        one = (src_r, dst5[1], cands5[1], dist, pt, nbr, occ_h[1])
+        b1 = ugal_route_bytes(*one[:6], ugal_g)
+        b5 = sum(ugal_route_bytes(src_r, dst5[i], cands5[i], dist, pt, nbr,
+                                  ugal_g) for i in range(5))
+        ms1 = time_ms(lambda: ugal_route_cuda(*one, **kw), iters=500)
+        ms5 = time_ms(lambda: ugal_route_cuda(*rcases["shared"], **kw),
+                      iters=500)
+        ms5s = time_ms(lambda: ugal_route_cuda(*rcases["stacked"], **kw),
+                       iters=500)
+        u_times[mode] = dict(
+            ms_l1=ms1, bound_ms_l1=1e3 * b1 / PEAK_BYTES_S, ms_l5=ms5,
+            ms_l5_per_lane=ms5 / 5, bound_ms_l5=1e3 * b5 / PEAK_BYTES_S,
+            ms_l5_stacked=ms5s,
+            plain_ms_l5=time_ms(lambda: ugal_route_ref(*rcases["shared"],
+                                                       **kw), iters=50))
+    emit({"phase": "sweep_kernels", "equal": True, "max_abs_err": err,
+          "alloc": {"lanes": 5, "cycles": {str(W): acases[W][0]
+                                           for W in acases},
+                    "w6_l1": a1, "w6_l5": a5,
+                    "w6_l5_ms_per_lane": a5["ms"] / 5,
+                    "pr14_w6_l1_ms": 0.010401},
+          "ugal_route": {"lanes": 5, "E": E, "C": C,
+                         "tables": ["shared healthy",
+                                    "stacked healthy/masked/stale"],
+                         "valiant_picks": n_val, "times": u_times}})
+    sweep_report = {
+        "alloc_rounds": dict(max_abs_err=err, ms_l1=a1["ms"],
+                             bound_ms_l1=a1["bound_ms"], ms_l5=a5["ms"],
+                             ms_l5_per_lane=a5["ms"] / 5,
+                             bound_ms_l5=a5["bound_ms"],
+                             plain_ms_l5=a5["plain_ms"]),
+        "ugal_select": dict(max_abs_err=err, kernel="ugal_route",
+                            **u_times["ugal_l"],
+                            ms_l5_ugal_g=u_times["ugal_g"]["ms_l5"])}
+
+    # ---- 21. the main path of this slice: Fig 6a's Slim Fly curve as one
+    # five-lane sweep at full width (q=19, uniform, UGAL-L, seed 0)
+    tab_o, ro = ctx["tab_o"], ctx["ro"]
+    uni = make_traffic(tab_o, "uniform")
+    torch.cuda.synchronize()
+    at_start = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = sweep_simulate(tab_o, uni, SimConfig(**OPEN_LOOP_CFG),
+                         rates=SWEEP_RATES)
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t0
+    launches_sweep = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n = OPEN_LOOP_CFG["cycles"]
+    mid = res[SWEEP_RATES.index(OPEN_LOOP_CFG["injection_rate"])]
+    g = GOLDEN_OPEN["uniform"]
+    rel_acc = abs(mid.accepted_load - g["accepted_load"]) / g["accepted_load"]
+    rel_lat = abs(mid.avg_latency - g["avg_latency"]) / g["avg_latency"]
+    emit({"phase": "sweep", "q": 19, "traffic": "uniform", "rates": SWEEP_RATES,
+          **{k: v for k, v in OPEN_LOOP_CFG.items() if k != "injection_rate"},
+          "lanes": [dict(rate=rt, accepted_load=r.accepted_load,
+                         avg_latency=r.avg_latency, delivered=r.delivered,
+                         injected=r.injected, dropped=r.dropped_at_source,
+                         saturated=r.saturated,
+                         conservation_every_cycle=conservation(r))
+                    for rt, r in zip(SWEEP_RATES, res)],
+          "lane_0.5_equals_open_loop_run": same_results(mid, ro),
+          "lane_0.5_rel_accepted": rel_acc, "lane_0.5_rel_latency": rel_lat,
+          "sweep_s": sim_s, "cycles_per_s": n / sim_s,
+          "lane_cycles_per_s": len(SWEEP_RATES) * n / sim_s,
+          "open_loop_phase5_cycles_per_s": ctx["open_cycles_per_s"],
+          "max_memory_allocated": peak, "peak_above_start": peak - at_start,
+          "launches": launches_sweep})
+    assert all(conservation(r) for r in res), "a lane lost or duplicated flits"
+    assert same_results(mid, ro), "the 0.5 lane differs from phase 5's run"
+    assert rel_acc <= ACCEPTED_RTOL and rel_lat <= LATENCY_RTOL
+    # allocation and the route choice once per cycle for all five lanes
+    assert launches_sweep == {"minplus": 0, "alloc_rounds": n,
+                              "ugal_route": n, "ugal_select": 0,
+                              "decode_attention": 0}, launches_sweep
+
+    # ---- 22. kernel path against plain path at q=7: a rate-lane and a
+    # stacked-mask sweep (UGAL-G), a closed-loop seed/mask sweep (UGAL-L);
+    # every lane also equal to its sequential run
+    t0 = time.perf_counter()
+    tab7, tab7m, tab7s = ctx["tab7"], ctx["tab7m"], ctx["tab7s"]
+    tr7 = make_traffic(tab7, "uniform")
+    cfg7 = dict(cycles=300, warmup=100, mode="ugal_g", seed=7)
+    open_cases = [("rates", tab7, [0.2, 0.5, 0.8], None),
+                  ("masks", [tab7, tab7m, tab7s], [0.5], [1, 2, 3])]
+    for name, tabs, rates, seeds in open_cases:
+        out = {path: sweep_simulate(tabs, tr7, SimConfig(kernel_path=path,
+                                                         **cfg7),
+                                    rates=rates, seeds=seeds)
+               for path in ("cuda", "ref")}
+        lanes = tabs if isinstance(tabs, list) else [tabs] * 3
+        for i, (k, r) in enumerate(zip(out["cuda"], out["ref"])):
+            assert same_results(k, r), (name, i)
+            seq = simulate(lanes[i], tr7, SimConfig(**dict(
+                cfg7, injection_rate=(rates * 3)[i],
+                seed=cfg7["seed"] if seeds is None else seeds[i])))
+            assert same_results(k, seq), (name, i)
+            assert conservation(k)
+    # a bound on the cycles: both fabrics are connected, so every lane
+    # completes long before it
+    assert (tab7m.dist < UNREACH).all()
+    wcfg = WorkloadSimConfig(mode="ugal_l", chunk=64, max_cycles=4096)
+    closed = {path: sweep_run_workload(
+        [tab7, tab7m], ctx["wl7"],
+        dataclasses.replace(wcfg, kernel_path=path), seeds=[0, 1])
+        for path in ("cuda", "ref")}
+    for i, (k, r) in enumerate(zip(closed["cuda"], closed["ref"])):
+        assert k.completed and same_results(k, r), i
+        seq = run_workload([tab7, tab7m][i], ctx["wl7"],
+                           dataclasses.replace(wcfg, seed=i))
+        assert same_results(k, seq), i
+    emit({"phase": "sweep_paths_equal", "q": 7, "equal": True,
+          "open_loop": [c[0] for c in open_cases], "open_mode": "ugal_g",
+          "closed_loop": "seed/mask lanes, ugal_l",
+          "makespans": [k.makespan for k in closed["cuda"]],
+          "wall_s": time.perf_counter() - t0})
+
+    # ---- 23. the q=19 stencil on stacked tables: healthy plus two 5%
+    # failure samples (routes re-converged), MIN
+    topo = ctx["tables"].topo
+    t0 = time.perf_counter()
+    masked = [ctx["tables"].with_failures(failure_sample(topo, 0.05, seed=s))
+              for s in (19, 23)]
+    for m in masked:
+        assert (m.dist < UNREACH).all(), "a failure sample cut the fabric"
+    tables_s = time.perf_counter() - t0
+    lanes = [ctx["tables"]] + masked
+    t0 = time.perf_counter()
+    rc = sweep_run_workload(lanes, ctx["wl"], WorkloadSimConfig())
+    torch.cuda.synchronize()
+    closed_s = time.perf_counter() - t0
+    healthy = dict(makespan=rc[0].makespan, flits=rc[0].flits_delivered,
+                   done_sum=int(rc[0].msg_done.sum()),
+                   start_sum=int(rc[0].msg_start.sum()))
+    emit({"phase": "sweep_closed", "q": 19, "lanes": 3, "mode": "min",
+          "failure_samples": ["5% seed 19", "5% seed 23"],
+          "completed": [r.completed for r in rc],
+          "makespans": [r.makespan for r in rc],
+          "cycles_run": [r.cycles_run for r in rc],
+          "healthy": healthy, "tables_s": tables_s, "sweep_s": closed_s})
+    assert all(r.completed for r in rc), [r.makespan for r in rc]
+    assert healthy == GOLDEN_Q19, (healthy, GOLDEN_Q19)
+
+    # ---- 24. the port's Fig 6 driver in smoke mode
+    t0 = time.perf_counter()
+    rows, entries = fig6.run("smoke", repeats=1, out=os.path.join(
+        ROOT, "chiprun_out", "fig6_torch_smoke.json"))
+    names = [r["name"] for r in rows]
+    emit({"phase": "fig6_driver", "mode": "smoke", "rows": rows,
+          "curves": [dict(name=e.name, lanes=e.extra_metrics["lanes"],
+                          wall_s=e.wall_s, first_call_s=e.compile_s,
+                          cycles_per_s=e.cycles_per_sec,
+                          peak_mem_bytes=e.peak_mem_bytes)
+                     for e in entries],
+          "names_equal_reference": names == FIG6_SMOKE_ROWS,
+          "wall_s": time.perf_counter() - t0})
+    assert names == FIG6_SMOKE_ROWS, names
+    assert all(np.isfinite(r["accepted_load"]) and r["accepted_load"] > 0
+               for r in rows), rows
+    return {"report": sweep_report, "launches": launches_sweep}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1393,6 +1721,7 @@ def main() -> int:
     t_sim = time.perf_counter()
     launches_open = kernels.launch_counts()
     sim_s = t_sim - t_build
+    open_cps = OPEN_LOOP_CFG["cycles"] / sim_s
     emit({"phase": "open_loop", "q": 19, "routers": tab_o.n_routers,
           "endpoints": tab_o.n_endpoints, "traffic": "uniform",
           **OPEN_LOOP_CFG, "accepted_load": ro.accepted_load,
@@ -1445,9 +1774,8 @@ def main() -> int:
 
     def capture(cycle, *arrays, **kw):
         if cycle in snap_cycles:
-            captured.append((cycle, [x.clone() for x in arrays],
-                             {k: v for k, v in kw.items()
-                              if k != "kernel_path"}))
+            captured.append((cycle, one_lane(arrays, ALLOC_LANE_ARGS),
+                             alloc_kw(kw)))
         return real_alloc(cycle, *arrays, **kw)
 
     route_calls = [0]
@@ -1455,7 +1783,7 @@ def main() -> int:
     def capture_route(*arrays, **kw):
         # one call per cycle; later cycles have filled queues
         if route_calls[0] in (150, 250):
-            captured_route.append([x.clone() for x in arrays])
+            captured_route.append(one_lane(arrays, ROUTE_LANE_ARGS))
         route_calls[0] += 1
         return real_route(*arrays, **kw)
     engine.alloc_rounds, engine.ugal_route = capture, capture_route
@@ -1678,6 +2006,10 @@ def main() -> int:
     attn_decode_phase(dev, report)                       # phase 12
     launches_serve = serve_phases(dev)                   # phases 13-15
     fig6 = fig6_phases(dev, sm_max_mhz)                  # phases 16-19
+    sweep = sweep_phases(dev, dict(                      # phases 20-24
+        captured=captured, captured_route=captured_route, tab_o=tab_o,
+        ro=ro, open_cycles_per_s=open_cps, tab_d=tab_d, tab_s=tab_s,
+        tables=tables, wl=wl, tab7=tab7, tab7m=tab7m, tab7s=tab7s, wl7=wl7))
 
     def fig6_entry(kernel: str, key: str) -> dict:
         # the kernel's launches in each phase-16 run, and phase 18's
@@ -1686,11 +2018,18 @@ def main() -> int:
                              for run, n in fig6["launches"].items()},
                 **fig6[key]}
 
+    def sweep_entry(kernel: str, key: str) -> dict:
+        # the kernel's launches in the five-lane sweep (phase 21) and
+        # phase 20's lane-axis checks and times
+        return {"launches": sweep["launches"][kernel],
+                **sweep["report"][key]}
+
     src = "src/repro_torch/kernels/csrc/"
     # launches: the open loop's main path (phase 5), which runs the three
-    # simulator kernels, the closed loop's (phase 4) riding beside, and
-    # the three Fig 6 fabrics' (phase 16) under "fig6"; the serving path's
-    # (phase 13) for decode attention
+    # simulator kernels, the closed loop's (phase 4) riding beside, the
+    # three Fig 6 fabrics' (phase 16) under "fig6", and the five-lane
+    # sweep's (phase 21) under "sweep"; the serving path's (phase 13) for
+    # decode attention
     rows = [
         dict(name="minplus", route="cuda", source=src + "minplus.cu",
              replaces="src/repro/kernels/minplus.py:58",
@@ -1704,12 +2043,14 @@ def main() -> int:
              launches_closed_loop=launches["alloc_rounds"], bound_by="bytes",
              library_ms=None,
              fig6=fig6_entry("alloc_rounds", "alloc_rounds"),
+             sweep=sweep_entry("alloc_rounds", "alloc_rounds"),
              **report["alloc_rounds"]),
         dict(name="ugal_select", route="cuda", source=src + "ugal.cu",
              replaces="src/repro/kernels/alloc.py:170",
              launches=launches_open["ugal_route"],
              launches_closed_loop=launches["ugal_route"], bound_by="bytes",
              library_ms=None, fig6=fig6_entry("ugal_route", "ugal_select"),
+             sweep=sweep_entry("ugal_route", "ugal_select"),
              **report["ugal_select"]),
         dict(name="decode_attention", route="cuda",
              source=src + "attn_decode.cu",

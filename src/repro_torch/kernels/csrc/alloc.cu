@@ -5,12 +5,17 @@
 // `_alloc_rounds_math` in src/repro/kernels/ref.py.  It runs once in
 // every simulated cycle of the flit engine (SwitchCore.alloc).
 //
-// Contract (int32 everywhere; N routers, PV = P*V network queues and PE
-// source queues per router, K = PV + PE < KSHIFT requests):
-//   in   out_n/ej_n/sp_n [N, PV, W], cnt_n [N, PV],
-//        out_s/ej_s/sp_s [N, PE, W], cnt_s [N, PE], epr [N]
-//   out  cs_n/es_n [N, PV], cs_s/es_s [N, PE]  granted window offset by
-//        kind (-1 = none); win_req [N, P] winning request per output port
+// Contract (int32 everywhere; L lanes, N routers, PV = P*V network queues
+// and PE source queues per router, K = PV + PE < KSHIFT requests):
+//   in   out_n/ej_n/sp_n [L, N, PV, W], cnt_n [L, N, PV],
+//        out_s/ej_s/sp_s [L, N, PE, W], cnt_s [L, N, PE], epr [N],
+//        cyc: lane l's cycle at cyc[l * cyc_stride] (stride 0: one cycle
+//        for every lane), in device memory
+//   out  cs_n/es_n [L, N, PV], cs_s/es_s [L, N, PE]  granted window offset
+//        by kind (-1 = none); win_req [L, N, P] winning request per port
+// Lanes are independent sweep points (blockIdx.y): the priorities use the
+// lane's own cycle and the lane-local queue ids, so lane l's grants equal
+// a single-lane call's on its arrays.
 // Each round w: ejection grants go to the requests ranked below the
 // router's remaining budget of p ejection ports, ranked by rotated
 // exclusive prefix counts (net queues from column cycle % PV, before or
@@ -142,7 +147,7 @@ __device__ __forceinline__ int prefix_at(const int (&X)[NJ], int i, int tot) {
 // W slots per request, NJ = ceil(K / 32) request rows per lane
 template <int W, int NJ>
 __global__ void __launch_bounds__(NT)
-alloc_kernel(int cycle,
+alloc_kernel(const int* __restrict__ cyc, int cyc_stride,
              const int* __restrict__ out_n, const int* __restrict__ ej_n,
              const int* __restrict__ sp_n, const int* __restrict__ cnt_n,
              const int* __restrict__ out_s, const int* __restrict__ ej_s,
@@ -158,6 +163,14 @@ alloc_kernel(int cycle,
     if (r >= N) return;                 // no block barrier below
     const int PV = P * V;
     const int K = PV + PE;
+    // this sweep lane's arrays and cycle
+    const size_t ln = blockIdx.y;
+    const size_t lpv = ln * N * PV, lpe = ln * N * PE;
+    out_n += lpv * W; ej_n += lpv * W; sp_n += lpv * W; cnt_n += lpv;
+    out_s += lpe * W; ej_s += lpe * W; sp_s += lpe * W; cnt_s += lpe;
+    cs_n += lpv; es_n += lpv; cs_s += lpe; es_s += lpe;
+    win_req += ln * N * P;
+    const int cycle = cyc[ln * cyc_stride];
     const int rn = region_ints(PV * W), rs = region_ints(PE * W);
     int* reg = smem + warp * warp_ints(PV, PE, W);
     int* cmin = reg + 3 * (rn + rs);    // per output port, this round,
@@ -350,11 +363,11 @@ alloc_kernel(int cycle,
 }
 
 template <int W, int NJ>
-int launch_wj(int cycle, const int* out_n, const int* ej_n, const int* sp_n,
-              const int* cnt_n, const int* out_s, const int* ej_s,
+int launch_wj(const int* cyc, int cyc_stride, const int* out_n,
+              const int* ej_n, const int* sp_n, const int* cnt_n, const int* out_s, const int* ej_s,
               const int* sp_s, const int* cnt_s, const int* epr, int* cs_n,
-              int* es_n, int* cs_s, int* es_s, int* win_req, int N, int P,
-              int V, int PE, int p_budget, int NQ, int R,
+              int* es_n, int* cs_s, int* es_s, int* win_req, int L, int N,
+              int P, int V, int PE, int p_budget, int NQ, int R,
               cudaStream_t stream) {
     const int smem = RPB * warp_ints(P * V, PE, W) * (int)sizeof(int);
     // the attribute belongs to the current device: set it on every launch
@@ -362,24 +375,26 @@ int launch_wj(int cycle, const int* out_n, const int* ej_n, const int* sp_n,
         alloc_kernel<W, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (e != cudaSuccess) return (int)e;
-    alloc_kernel<W, NJ><<<(N + RPB - 1) / RPB, NT, smem, stream>>>(
-        cycle, out_n, ej_n, sp_n, cnt_n, out_s, ej_s, sp_s, cnt_s, epr,
+    const dim3 grid((N + RPB - 1) / RPB, L);
+    alloc_kernel<W, NJ><<<grid, NT, smem, stream>>>(
+        cyc, cyc_stride, out_n, ej_n, sp_n, cnt_n, out_s, ej_s, sp_s, cnt_s, epr,
         cs_n, es_n, cs_s, es_s, win_req, N, P, V, PE, p_budget, NQ, R);
     return (int)cudaGetLastError();
 }
 
 template <int W>
-int launch_w(int nj, int cycle, const int* out_n, const int* ej_n,
+int launch_w(int nj, const int* cyc, int cyc_stride, const int* out_n, const int* ej_n,
              const int* sp_n, const int* cnt_n, const int* out_s,
              const int* ej_s, const int* sp_s, const int* cnt_s,
              const int* epr, int* cs_n, int* es_n, int* cs_s, int* es_s,
-             int* win_req, int N, int P, int V, int PE, int p_budget, int NQ,
-             int R, cudaStream_t st) {
+             int* win_req, int L, int N, int P, int V, int PE, int p_budget,
+             int NQ, int R, cudaStream_t st) {
 #define ALLOC_NJ(J)                                                         \
     case J:                                                                 \
-        return launch_wj<W, J>(cycle, out_n, ej_n, sp_n, cnt_n, out_s, ej_s, \
-                               sp_s, cnt_s, epr, cs_n, es_n, cs_s, es_s,     \
-                               win_req, N, P, V, PE, p_budget, NQ, R, st);
+        return launch_wj<W, J>(cyc, cyc_stride, out_n, ej_n, sp_n, cnt_n,    \
+                               out_s, ej_s, sp_s, cnt_s, epr, cs_n, es_n,    \
+                               cs_s, es_s, win_req, L, N, P, V, PE,          \
+                               p_budget, NQ, R, st);
     switch (nj) {
         ALLOC_NJ(1) ALLOC_NJ(2) ALLOC_NJ(3) ALLOC_NJ(4)
         ALLOC_NJ(5) ALLOC_NJ(6) ALLOC_NJ(7) ALLOC_NJ(8)
@@ -390,26 +405,30 @@ int launch_w(int nj, int cycle, const int* out_n, const int* ej_n,
 
 }  // namespace
 
-// Launches one warp per router (four per block) on `stream`; returns the
-// launch's cudaError_t (0 = success).  Shapes as in the header; W must
-// be 1..8; the caller checks dtype, shape, contiguity and device.
+// Launches one warp per router (four per block) and lane (grid y) on
+// `stream`; returns the launch's cudaError_t (0 = success).  Shapes as in
+// the header; W must be 1..8; the caller checks dtype, shape, contiguity,
+// the device and every lane's cycle (0 <= cycle, cycle*7919 + R + W*131 <
+// 2^31).
 extern "C" int alloc_rounds_launch(
-        int cycle, const int* out_n, const int* ej_n, const int* sp_n,
+        const int* cyc, int cyc_stride, const int* out_n, const int* ej_n, const int* sp_n,
         const int* cnt_n, const int* out_s, const int* ej_s,
         const int* sp_s, const int* cnt_s, const int* epr,
         int* cs_n, int* es_n, int* cs_s, int* es_s, int* win_req,
-        int N, int W, int P, int V, int PE, int p_budget, int NQ, int R,
-        void* stream) {
-    if (N <= 0 || W <= 0 || W > 8 || P <= 0 || V <= 0 || PE < 0 || R <= 0
-        || P * V + PE >= KSHIFT || cycle < 0)
+        int L, int N, int W, int P, int V, int PE, int p_budget, int NQ,
+        int R, void* stream) {
+    if (L <= 0 || L > 65535 || N <= 0 || W <= 0 || W > 8 || P <= 0
+        || V <= 0 || PE < 0 || R <= 0 || P * V + PE >= KSHIFT
+        || cyc_stride < 0 || cyc_stride > 1)
         return (int)cudaErrorInvalidValue;
     const int nj = (P * V + PE + 31) / 32;
     cudaStream_t st = (cudaStream_t)stream;
 #define ALLOC_W(WW)                                                        \
     case WW:                                                               \
-        return launch_w<WW>(nj, cycle, out_n, ej_n, sp_n, cnt_n, out_s,    \
-                            ej_s, sp_s, cnt_s, epr, cs_n, es_n, cs_s, es_s, \
-                            win_req, N, P, V, PE, p_budget, NQ, R, st);
+        return launch_w<WW>(nj, cyc, cyc_stride, out_n, ej_n, sp_n, cnt_n, \
+                            out_s, ej_s, sp_s, cnt_s, epr, cs_n, es_n,     \
+                            cs_s, es_s, win_req, L, N, P, V, PE, p_budget, \
+                            NQ, R, st);
     switch (W) {
         ALLOC_W(1) ALLOC_W(2) ALLOC_W(3) ALLOC_W(4)
         ALLOC_W(5) ALLOC_W(6) ALLOC_W(7) ALLOC_W(8)

@@ -13,14 +13,19 @@
 //   terms in, first-argmin out), kept and held against
 //   `ugal_select_ref`, off the main path.
 //
-// ugal_route contract (E endpoints, C >= 1 candidates, N < 2^15 routers,
-// P ports):
-//   in   src_r, dst_r [E] int32      source and destination routers
-//        cands [E, C] int32          raw draws in [0, N), not yet bumped
-//        dist, port_toward [N, N]    int16 tables (port -1: none)
-//        nbr, occ [N, P] int32       neighbour (-1: dead or pad port) and
-//                                    downstream depth (may hold BIG)
-//   out  inter, phase [E] int32
+// ugal_route contract (L lanes, E endpoints, C >= 1 candidates, N < 2^15
+// routers, P ports):
+//   in   src_r [E] int32             source routers (every lane)
+//        dst_r [L, E] int32          destination routers
+//        cands [L, E, C] int32       raw draws in [0, N), not yet bumped
+//        dist, port_toward [N, N]    int16 tables (port -1: none), shared
+//                                    by the lanes, or [L, N, N] stacked
+//        nbr [N, P] (or [L, N, P])   neighbour (-1: dead or pad port)
+//        occ [L, N, P] int32         downstream depth (may hold BIG)
+//   out  inter, phase [L, E] int32
+// The L E endpoints of all lanes are indexed together (lane = e / E), so
+// a sweep's route choice is one launch; each lane reads its own occupancy
+// and tables, and equals a single-lane call (L = 1).
 // Per endpoint: each candidate equal to the source or the destination is
 // bumped by 1, then by 2 (mod N); MIN's and each candidate's path length
 // (dist widened to int32 before the add) and occupancy term are gathered
@@ -97,7 +102,7 @@ ugal_kernel(const int* __restrict__ len_min, const int* __restrict__ len_val,
     best[e] = best_i;
 }
 
-// the fabric's tables, as the route kernel reads them
+// one lane's tables, as the route kernel reads them
 struct Tables {
     const short* __restrict__ dist;          // [N, N]
     const short* __restrict__ port_toward;   // [N, N]
@@ -134,16 +139,26 @@ __device__ __forceinline__ int path_occ(const Tables& t, int s, int d,
 
 __global__ void __launch_bounds__(RT)
 ugal_route_kernel(const int* __restrict__ src_r, const int* __restrict__ dst_r,
-                  const int* __restrict__ cands, Tables t,
-                  int* __restrict__ inter, int* __restrict__ phase, int E,
-                  int C, bool ugal_g, int unreach, int big) {
-    const int e = blockIdx.x * (RT / LANES) + threadIdx.x / LANES;
+                  const int* __restrict__ cands, Tables t, bool stacked,
+                  int* __restrict__ inter, int* __restrict__ phase, int L,
+                  int E, int C, bool ugal_g, int unreach, int big) {
+    // e indexes the endpoints of every sweep lane: lane sl = e / E
+    const long long e = (long long)blockIdx.x * (RT / LANES)
+                        + threadIdx.x / LANES;
     const int lane = threadIdx.x % LANES;
     // lanes without a path keep (INT_MAX, INT_MAX) and lose every
     // comparison; a lane's first path is taken whatever its score
     int best_s = INT_MAX, best_i = INT_MAX, best_v = 0;
-    if (e < E) {
-        const int s = __ldg(src_r + e), d = __ldg(dst_r + e);
+    if (e < (long long)L * E) {
+        const int sl = (int)(e / E);
+        const size_t nn = stacked ? (size_t)sl * t.N * t.N : 0;
+        const size_t np = (size_t)sl * t.N * t.P;
+        t.dist += nn;
+        t.port_toward += nn;
+        t.nbr += stacked ? np : 0;
+        t.occ += np;
+        const int s = __ldg(src_r + (e - (long long)sl * E));
+        const int d = __ldg(dst_r + e);
         for (int j = lane; j <= C; j += LANES) {
             int v, len, oc;
             if (j == 0) {
@@ -178,7 +193,7 @@ ugal_route_kernel(const int* __restrict__ src_r, const int* __restrict__ dst_r,
             best_v = ov;
         }
     }
-    if (e < E && lane == 0) {
+    if (e < (long long)L * E && lane == 0) {
         inter[e] = best_v;
         phase[e] = best_i == 0;
     }
@@ -204,22 +219,23 @@ extern "C" int ugal_select_launch(
     return (int)cudaGetLastError();
 }
 
-// Launches ceil(E / 16) blocks of 128 threads (8 lanes per endpoint) on
+// Launches ceil(L E / 16) blocks of 128 threads (8 lanes per endpoint) on
 // `stream`; returns the launch's cudaError_t (0 = success).  Contract as
-// in the header; the caller checks dtypes, shapes, contiguity, the
-// device, E >= 1, C >= 1 and N < 2^15.
+// in the header (stacked != 0: [L, ...] tables); the caller checks
+// dtypes, shapes, contiguity, the device, E >= 1, C >= 1 and N < 2^15.
 extern "C" int ugal_route_launch(
         const int* src_r, const int* dst_r, const int* cands,
         const short* dist, const short* port_toward, const int* nbr,
-        const int* occ, int* inter, int* phase, int E, int C, int N, int P,
-        int ugal_g, int unreach, int big, int occ_cap, void* stream) {
-    if (E < 1 || C < 1 || N < 1 || N >= (1 << 15) || P < 1)
+        const int* occ, int* inter, int* phase, int L, int E, int C, int N,
+        int P, int stacked, int ugal_g, int unreach, int big, int occ_cap,
+        void* stream) {
+    if (L < 1 || E < 1 || C < 1 || N < 1 || N >= (1 << 15) || P < 1)
         return (int)cudaErrorInvalidValue;
     const Tables t{dist, port_toward, nbr, occ, N, P, occ_cap};
-    const long long blocks = ((long long)E * LANES + RT - 1) / RT;
+    const long long blocks = ((long long)L * E * LANES + RT - 1) / RT;
     ugal_route_kernel<<<(unsigned)blocks, RT, 0, (cudaStream_t)stream>>>(
-        src_r, dst_r, cands, t, inter, phase, E, C, ugal_g != 0, unreach,
-        big);
+        src_r, dst_r, cands, t, stacked != 0, inter, phase, L, E, C,
+        ugal_g != 0, unreach, big);
     return (int)cudaGetLastError();
 }
 

@@ -71,10 +71,10 @@ def minplus_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc[0] if squeeze else acc
 
 
-def alloc_rounds_ref(cycle: int, out_n, ej_n, sp_n, cnt_n,
+def alloc_rounds_ref(cycle, out_n, ej_n, sp_n, cnt_n,
                      out_s, ej_s, sp_s, cnt_s, epr,
                      *, W: int, P: int, V: int, PE: int, p_budget: int,
-                     NQ: int, R: int):
+                     NQ: int, R: int, cycle_dev=None):
     """W rounds of rotating-priority switch allocation, all routers.
 
     Same contract as `repro.kernels.ref.alloc_rounds_ref` (int32 in and
@@ -87,14 +87,27 @@ def alloc_rounds_ref(cycle: int, out_n, ej_n, sp_n, cnt_n,
     Returns (chan_slot_net [B, PV], ej_slot_net [B, PV],
              chan_slot_src [B, PE], ej_slot_src [B, PE], win_req [B, P]).
 
-    `cycle` is a host integer.  cycle * 7919 + qidx + w * 131 stays
-    below 2^31 for cycle <= 200k and R <= 2^18, so every term here is
-    non-negative int32 and `%` (floor-mod in torch, as in jnp) never
-    sees a negative operand -- also on rows with epr = -1, whose
-    source-queue ids NQ - PE + col are still >= 0 (and masked by
-    cnt_s == 0).
+    Lane axis, as the reference's dispatcher (`repro.kernels.alloc.
+    alloc_rounds`): the eight request arrays may carry one leading [L]
+    axis (detected by rank), and so do the outputs; `epr` stays
+    lane-invariant.  `cycle` is a host integer, or a sequence of L of
+    them (one per lane); `cycle_dev`, where given, holds the same
+    values as an int32 tensor of shape [1] or [L] on the arrays' device
+    (what the kernel reads), and is read instead of uploading `cycle`.
+    Each lane's grants equal a single-lane call's.
+
+    cycle * 7919 + qidx + w * 131 stays below 2^31 for cycle <= 200k and
+    R <= 2^18, so every term here is non-negative int32 and `%`
+    (floor-mod in torch, as in jnp) never sees a negative operand --
+    also on rows with epr = -1, whose source-queue ids NQ - PE + col are
+    still >= 0 (and masked by cnt_s == 0).
     """
-    B = cnt_n.shape[0]
+    lanes = cnt_n.dim() == 3
+    if not lanes:
+        out_n, ej_n, sp_n, cnt_n, out_s, ej_s, sp_s, cnt_s = (
+            x[None] for x in (out_n, ej_n, sp_n, cnt_n, out_s, ej_s, sp_s,
+                              cnt_s))
+    L, B = cnt_n.shape[:2]
     PV = P * V
     K = PV + PE
     assert K < KSHIFT, f"request index overflows KSHIFT lanes: {K}"
@@ -102,79 +115,84 @@ def alloc_rounds_ref(cycle: int, out_n, ej_n, sp_n, cnt_n,
     i32 = torch.int32
     intmax = torch.iinfo(i32).max
 
-    col_pv = torch.arange(PV, dtype=i32, device=dev)[None, :]
-    col_pe = torch.arange(PE, dtype=i32, device=dev)[None, :]
-    col_k = torch.arange(K, dtype=i32, device=dev)[None, :]
+    # the cycle of each lane, [1 or L, 1, 1]
+    if cycle_dev is None:
+        cycle_dev = torch.tensor(cycle, dtype=i32, device=dev)
+    cyc = cycle_dev.reshape(-1, 1, 1)
+    col_pv = torch.arange(PV, dtype=i32, device=dev)
+    col_pe = torch.arange(PE, dtype=i32, device=dev)
+    col_k = torch.arange(K, dtype=i32, device=dev)
     rows = torch.arange(B, dtype=i32, device=dev)[:, None]
     qidx_n = rows * PV + col_pv                      # global queue ids
     qidx_s = NQ + epr.to(i32)[:, None] * PE + col_pe
 
-    s_rot = cycle % PV                               # ejection rotation
-    net_first = cycle % 2 == 0
-    base = cycle * 7919
+    s_rot = cyc % PV                                 # ejection rotation
+    net_first = cyc % 2 == 0
+    base = cyc * 7919
 
-    granted_n = torch.zeros((B, PV), dtype=torch.bool, device=dev)
-    granted_s = torch.zeros((B, PE), dtype=torch.bool, device=dev)
-    chan_taken = torch.zeros((B, P + 1), dtype=torch.bool, device=dev)
-    budget = torch.full((B, 1), p_budget, dtype=i32, device=dev)
-    cs_n = torch.full((B, PV), -1, dtype=i32, device=dev)
-    es_n = torch.full((B, PV), -1, dtype=i32, device=dev)
-    cs_s = torch.full((B, PE), -1, dtype=i32, device=dev)
-    es_s = torch.full((B, PE), -1, dtype=i32, device=dev)
-    win_req = torch.full((B, P), -1, dtype=i32, device=dev)
+    granted_n = torch.zeros((L, B, PV), dtype=torch.bool, device=dev)
+    granted_s = torch.zeros((L, B, PE), dtype=torch.bool, device=dev)
+    chan_taken = torch.zeros((L, B, P + 1), dtype=torch.bool, device=dev)
+    budget = torch.full((L, B, 1), p_budget, dtype=i32, device=dev)
+    cs_n = torch.full((L, B, PV), -1, dtype=i32, device=dev)
+    es_n = torch.full((L, B, PV), -1, dtype=i32, device=dev)
+    cs_s = torch.full((L, B, PE), -1, dtype=i32, device=dev)
+    es_s = torch.full((L, B, PE), -1, dtype=i32, device=dev)
+    win_req = torch.full((L, B, P), -1, dtype=i32, device=dev)
 
-    out_kw = torch.cat([out_n, out_s], dim=1)        # [B, K, W]
+    out_kw = torch.cat([out_n, out_s], dim=2)        # [L, B, K, W]
     qidx_k = torch.cat([qidx_n, qidx_s], dim=1)
-    rot0 = (qidx_k + base) % R                       # [B, K]
+    rot0 = (qidx_k + base) % R                       # [1 or L, B, K]
+    c_rot = s_rot.expand(L, B, 1).long()
 
     for w in range(W):
         vn = (cnt_n > w) & ~granted_n
         vs = (cnt_s > w) & ~granted_s
-        ejn = ej_n[:, :, w] != 0
-        ejs = ej_s[:, :, w] != 0
-        spn = sp_n[:, :, w] != 0
-        sps = sp_s[:, :, w] != 0
+        ejn = ej_n[..., w] != 0
+        ejs = ej_s[..., w] != 0
+        spn = sp_n[..., w] != 0
+        sps = sp_s[..., w] != 0
 
         # --- ejection grants: rotated exclusive-prefix ranks against a
         # budget of p ejection ports.  torch.cumsum/sum promote int32 to
         # int64 unless told otherwise; jnp keeps int32, so say int32.
         mn = (vn & ejn).to(i32)
         ms = (vs & ejs).to(i32)
-        cn = torch.cumsum(mn, dim=1, dtype=i32) - mn
-        sn = mn.sum(dim=1, keepdim=True, dtype=i32)
-        c_at = cn[:, s_rot:s_rot + 1]
+        cn = torch.cumsum(mn, dim=2, dtype=i32) - mn
+        sn = mn.sum(dim=2, keepdim=True, dtype=i32)
+        c_at = cn.gather(2, c_rot)
         rank_n = cn - c_at + torch.where(col_pv < s_rot, sn, 0)
-        cs_pre = torch.cumsum(ms, dim=1, dtype=i32) - ms
-        ss = ms.sum(dim=1, keepdim=True, dtype=i32)
-        rank_nf = rank_n if net_first else rank_n + ss
-        rank_sf = cs_pre + sn if net_first else cs_pre
+        cs_pre = torch.cumsum(ms, dim=2, dtype=i32) - ms
+        ss = ms.sum(dim=2, keepdim=True, dtype=i32)
+        rank_nf = torch.where(net_first, rank_n, rank_n + ss)
+        rank_sf = torch.where(net_first, cs_pre + sn, cs_pre)
         g_ej_n = (mn > 0) & (rank_nf < budget)
         g_ej_s = (ms > 0) & (rank_sf < budget)
-        budget = (budget - g_ej_n.sum(dim=1, keepdim=True, dtype=i32)
-                  - g_ej_s.sum(dim=1, keepdim=True, dtype=i32))
+        budget = (budget - g_ej_n.sum(dim=2, keepdim=True, dtype=i32)
+                  - g_ej_s.sum(dim=2, keepdim=True, dtype=i32))
 
         # --- channel grants: the lowest packed (rotating priority,
         # request index) among the live requests of each output port.
         # Requests with no port, or whose port was taken in an earlier
         # round, go to the spare column P, which is never read.
-        elig = torch.cat([vn & ~ejn & spn, vs & ~ejs & sps], dim=1)
-        cmb = ((rot0 + w * 131) % R) * KSHIFT + col_k            # [B, K]
-        out_all = out_kw[:, :, w]
+        elig = torch.cat([vn & ~ejn & spn, vs & ~ejs & sps], dim=2)
+        cmb = (((rot0 + w * 131) % R) * KSHIFT + col_k).expand(L, B, K)
+        out_all = out_kw[..., w]
         # port indices are clamped before every gather: torch raises on
         # an index out of range where jnp clamps (and an out port >= P
         # requests nothing, as in the reference)
         out_c = out_all.clamp(0, P - 1)
         live = (elig & (out_all >= 0) & (out_all < P)
-                & ~chan_taken.gather(1, out_c.long()))
+                & ~chan_taken.gather(2, out_c.long()))
         tgt = torch.where(live, out_c, P).long()
-        cmin = torch.full((B, P + 1), intmax, dtype=i32, device=dev)
-        cmin.scatter_reduce_(1, tgt, cmb, reduce="amin", include_self=True)
-        won = cmin[:, :P] < intmax
+        cmin = torch.full((L, B, P + 1), intmax, dtype=i32, device=dev)
+        cmin.scatter_reduce_(2, tgt, cmb, reduce="amin", include_self=True)
+        won = cmin[..., :P] < intmax
         # cmb values are distinct, so equality names exactly one winner
-        win_all = live & (cmb == cmin.gather(1, out_c.long()))
-        win_n, win_s = win_all[:, :PV], win_all[:, PV:]
-        chan_taken[:, :P] |= won
-        win_req = torch.where(won, cmin[:, :P] % KSHIFT, win_req)
+        win_all = live & (cmb == cmin.gather(2, out_c.long()))
+        win_n, win_s = win_all[..., :PV], win_all[..., PV:]
+        chan_taken[..., :P] |= won
+        win_req = torch.where(won, cmin[..., :P] % KSHIFT, win_req)
 
         granted_n = granted_n | win_n | g_ej_n
         granted_s = granted_s | win_s | g_ej_s
@@ -183,7 +201,8 @@ def alloc_rounds_ref(cycle: int, out_n, ej_n, sp_n, cnt_n,
         cs_s = torch.where(win_s, w, cs_s)
         es_s = torch.where(g_ej_s, w, es_s)
 
-    return cs_n, es_n, cs_s, es_s, win_req
+    out = (cs_n, es_n, cs_s, es_s, win_req)
+    return out if lanes else tuple(x[0] for x in out)
 
 
 def ugal_select_ref(len_min, len_val, occ_min, occ_val,
@@ -196,20 +215,20 @@ def ugal_select_ref(len_min, len_val, occ_min, occ_val,
     UGAL-L scores len * occ (int32, wrapping), UGAL-G scores occ + len;
     a dead path scores `big`.  Returns best [E] int32: the index into
     [MIN, cand_0, .., cand_{C-1}] of the first minimum score, so ties go
-    to MIN.
+    to MIN.  A leading lane axis ([L, E], [L, E, C]) maps row by row.
     """
-    lm, om = len_min[:, None], occ_min[:, None]
+    lm, om = len_min[..., None], occ_min[..., None]
     if ugal_g:
         sm, sv = om + lm, occ_val + len_val
     else:
         sm, sv = _mul_wrap32(lm, om), _mul_wrap32(len_val, occ_val)
     sm = torch.where(lm < unreach, sm, big)
     sv = torch.where(len_val < unreach, sv, big)
-    scores = torch.cat([sm, sv], dim=1)                  # [E, 1 + C]
-    m = scores.amin(dim=1, keepdim=True)
-    idx = torch.arange(scores.shape[1], dtype=torch.int32,
+    scores = torch.cat([sm, sv], dim=-1)                 # [.., E, 1 + C]
+    m = scores.amin(dim=-1, keepdim=True)
+    idx = torch.arange(scores.shape[-1], dtype=torch.int32,
                        device=scores.device)
-    first = torch.where(scores == m, idx, scores.shape[1]).amin(dim=1)
+    first = torch.where(scores == m, idx, scores.shape[-1]).amin(dim=-1)
     return first.to(torch.int32)
 
 
@@ -229,25 +248,46 @@ def ugal_path_terms(src_r, dst_r, cands, dist, port_toward, nbr, occ,
     """The bumped candidates and `ugal_select_ref`'s four inputs (len_min,
     len_val, occ_min, occ_val) of the UGAL route choice; arguments as in
     `ugal_route_ref`."""
-    N = dist.shape[0]
+    N = dist.shape[-1]
     i32 = torch.int32
-    s_, d_ = src_r[:, None], dst_r[:, None]
+    lanes = occ.dim() == 3
+    occ_off = tab_off = None
+    if lanes:
+        # one row space over the lanes: lane l's router r is row l N + r
+        # of the flattened occupancy and (stacked tables) of the tables
+        L, _, P = occ.shape
+        occ_off = torch.arange(L, dtype=i32, device=occ.device) * N
+        occ = occ.reshape(L * N, P)
+        src_r = src_r.expand(L, -1)
+        if dist.dim() == 3:
+            tab_off = occ_off
+            dist, port_toward, nbr = (dist.reshape(L * N, N),
+                                      port_toward.reshape(L * N, N),
+                                      nbr.reshape(L * N, P))
+    s_, d_ = src_r[..., None], dst_r[..., None]
     cands = bump_candidates(cands, s_, d_, N)
+
+    def row(s, off):
+        # router ids -> rows of a lane-flattened table (the lane axis
+        # leads every index here)
+        if off is None:
+            return s
+        return s + off.view((-1,) + (1,) * (s.dim() - 1))
 
     def dist32(s, t):
         # int16 + int16 stays int16 in torch, and a cut pair's
         # UNREACH + UNREACH = 2^15 would wrap: widen before adding
-        return dist[s, t].to(i32)
+        return dist[row(s, tab_off), t].to(i32)
 
     def first_occ(s, t):
-        o = port_toward[s, t].to(i32)
-        return torch.where(o >= 0, occ[s, o.clamp(min=0)].clamp(max=occ_cap),
-                           0)
+        o = port_toward[row(s, tab_off), t].to(i32)
+        return torch.where(o >= 0, occ[row(s, occ_off), o.clamp(min=0)]
+                           .clamp(max=occ_cap), 0)
 
     def path_occ(s, t):
         """Occupancy sum along the MIN path (D <= 2 fast form)."""
-        o1 = port_toward[s, t].to(i32)
-        m = nbr[s, o1.clamp(min=0)]
+        o1 = port_toward[row(s, tab_off), t].to(i32)
+        m = nbr[row(s, tab_off), o1.clamp(min=0)]
         # Stale tables (with_failures(rebuild=False)) can route through a
         # dead port, where m = -1.  The reference then reads row N - 1
         # (jnp wraps a negative index); so does the port, by the same
@@ -276,17 +316,21 @@ def ugal_route_ref(src_r, dst_r, cands, dist, port_toward, nbr, occ,
       dist, port_toward: [N, N]    int16 tables (port -1: none)
       nbr, occ: [N, P] int32       neighbours (-1: dead or pad port) and
                                    `SwitchCore.occupancy` (may hold BIG)
+    Lane axis: with occ [L, N, P], dst_r is [L, E] and cands [L, E, C],
+    src_r stays [E], and the tables are shared ([N, N], [N, P]) or
+    stacked ([L, N, N], [L, N, P]); each lane's choice equals a
+    single-lane call's.
     Candidates equal to an endpoint are bumped (1, then 2); UGAL-L scores
     len * (first hop's occupancy), UGAL-G occ + len with the occupancy
     summed along both legs' MIN paths, occupancies capped at `occ_cap`;
     the first minimum over [MIN, cand_0, ..] wins (`ugal_select_ref`).
-    Returns (inter, phase) [E] int32: the destination and phase 1 where
-    MIN wins, else the winning candidate and phase 0."""
+    Returns (inter, phase) int32, shaped as dst_r: the destination and
+    phase 1 where MIN wins, else the winning candidate and phase 0."""
     cands, *terms = ugal_path_terms(src_r, dst_r, cands, dist, port_toward,
                                     nbr, occ, ugal_g=ugal_g, occ_cap=occ_cap)
     best = ugal_select_ref(*terms, ugal_g=ugal_g, unreach=unreach, big=big)
-    inters = torch.cat([dst_r[:, None], cands], dim=1)
-    inter = inters.gather(1, best[:, None].long())[:, 0]
+    inters = torch.cat([dst_r[..., None], cands], dim=-1)
+    inter = inters.gather(-1, best[..., None].long())[..., 0]
     return inter, (best == 0).to(torch.int32)
 
 

@@ -8,13 +8,16 @@
 - engine:    `SwitchCore`, the input-queued router model on the device,
              and the open-loop engine `simulate`
 - workloads: the closed-loop message-DAG engine (`run_workload`)
+- sweep:     lane-batched sweeps (`sweep_simulate`, `sweep_run_workload`)
 """
 
 from .engine import SimConfig, SimResult, SwitchCore, simulate
-from .random import Draw, ReplaySource, TorchSource
+from .random import Draw, LaneSources, ReplaySource, TorchSource
+from .sweep import sweep_run_workload, sweep_simulate
 from .tables import SimTables
 from .traffic import PATTERNS, Traffic, make_traffic
 
 __all__ = ["SimConfig", "SimResult", "SwitchCore", "simulate", "SimTables",
-           "Draw", "ReplaySource", "TorchSource", "PATTERNS", "Traffic",
-           "make_traffic"]
+           "Draw", "LaneSources", "ReplaySource", "TorchSource", "PATTERNS",
+           "Traffic", "make_traffic", "sweep_simulate",
+           "sweep_run_workload"]

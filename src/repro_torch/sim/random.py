@@ -22,6 +22,13 @@ skip-self, shift's coin, VAL's and UGAL's bumps) is the port's own code.
   held against the reference bit for bit.  It raises on a missing draw,
   on a request whose kind, shape or bounds differ from the recorded
   draw, and on draws left over at the end of the run.
+- `LaneSources` asks one source per lane of a sweep for each draw, in
+  lane order, and stacks what they return on a leading [L] axis.  Each
+  lane's source sees exactly the calls a sequential run makes (same
+  streams, shapes, bounds and order, its own rate), so a lane with
+  `TorchSource(seed_i)` is bit-identical to the sequential run with
+  seed_i on the same device.  Draws of several lanes are never batched
+  into one generator call, which would change what each lane gets.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["STREAMS", "Draw", "TorchSource", "ReplaySource"]
+__all__ = ["STREAMS", "Draw", "TorchSource", "ReplaySource",
+           "LaneSources"]
 
 STREAMS = ("inj", "dst", "route")
 
@@ -119,3 +127,33 @@ class ReplaySource:
             left = sorted(self.draws)[:5]
             raise ValueError(f"{len(self.draws)} recorded draws were never "
                              f"used, e.g. {left}")
+
+
+class LaneSources:
+    """One source per lane, asked together: every draw is each lane's own
+    draw, stacked on a leading [L] axis ([1, ...] for one lane, a view).
+    `bernoulli` takes one p for every lane or a sequence of L of them."""
+
+    def __init__(self, sources):
+        self.sources = list(sources)
+
+    def begin_cycle(self, cycle: int) -> None:
+        for s in self.sources:
+            s.begin_cycle(cycle)
+
+    @staticmethod
+    def _stack(draws: list):
+        return draws[0][None] if len(draws) == 1 else torch.stack(draws)
+
+    def bernoulli(self, stream: str, p, shape: tuple):
+        ps = p if isinstance(p, (list, tuple)) else [p] * len(self.sources)
+        return self._stack([s.bernoulli(stream, pi, shape)
+                            for s, pi in zip(self.sources, ps, strict=True)])
+
+    def randint(self, stream: str, shape: tuple, low: int, high: int):
+        return self._stack([s.randint(stream, shape, low, high)
+                            for s in self.sources])
+
+    def finish(self) -> None:
+        for s in self.sources:
+            s.finish()

@@ -10,8 +10,13 @@ routing; `with_failures(..., rebuild=False)` only kills the ports and
 keeps the stale route tables (the transient before routing
 re-converges).  With ``ecmp=True`` the tables also hold every
 equal-cost first-hop port (`ecmp_ports`), built one router at a time
-in numpy.  Lane stacking (`stack`/`lane`) is not ported yet (ROADMAP
-Queue 1 #7).
+in numpy.
+
+Lane stacking, as in the reference: `stack` bundles L table sets of one
+fabric (e.g. failure-sample rebuilds) into one object whose per-lane
+arrays (`LANE_FIELDS`) carry a leading [L] axis (``lanes > 1``), and
+`lane` slices one lane back out.  Stacked tables are consumed by the
+sweeps (`repro_torch.sim.sweep`), which run every lane in one loop.
 """
 
 from __future__ import annotations
@@ -32,7 +37,9 @@ class SimTables:
     """Everything the engine needs, as host numpy.
 
     Ports of router r: 0..deg(r)-1 network ports (order = sorted
-    neighbor ids); the ejection "port" is virtual (engine-side).
+    neighbor ids); the ejection "port" is virtual (engine-side).  With
+    ``lanes > 1`` the `LANE_FIELDS` arrays carry a leading [L] axis
+    (`stack`).
     """
     topo: Topology
     n_routers: int
@@ -47,13 +54,67 @@ class SimTables:
     # [N, N, M] int16 equal-cost first-hop ports in ascending neighbour
     # order, -1 padded (build(ecmp=True)), or None
     ecmp_ports: Optional[np.ndarray] = None
+    lanes: int = 1                # >1: LANE_FIELDS have a leading L axis
 
     # the arrays a table set is made of, beside its topology
     FIELDS = ("nbr", "rev_port", "port_toward", "dist", "ep_router")
+    # the arrays that grow the leading lane axis under stack()
+    LANE_FIELDS = ("nbr", "rev_port", "port_toward", "dist", "ecmp_ports")
 
     @property
     def n_endpoints(self) -> int:
         return len(self.ep_router)
+
+    @classmethod
+    def stack(cls, tables: "list[SimTables]") -> "SimTables":
+        """Bundle L single-lane table sets of one fabric into one
+        lane-stacked object (the reference's `SimTables.stack`).
+
+        Every lane must have the same router, port and endpoint counts
+        and the same endpoint placement, and either all lanes or none
+        carry `ecmp_ports`; equal-cost widths that differ between lanes
+        are right-padded with -1 to the widest (a pad port scores BIG
+        and never wins the choice).  A refusal raises ValueError with the
+        reference's message (the reference asserts)."""
+        if len(tables) < 1:
+            raise ValueError("stack() needs at least one lane")
+        base = tables[0]
+        for t in tables:
+            if t.lanes != 1:
+                raise ValueError("stack() takes single-lane tables")
+            if (t.n_routers, t.P, t.p) != (base.n_routers, base.P, base.p):
+                raise ValueError("lane shape mismatch (different "
+                                 "topologies?)")
+            if not np.array_equal(t.ep_router, base.ep_router):
+                raise ValueError("lanes must share endpoint placement")
+            if (t.ecmp_ports is None) != (base.ecmp_ports is None):
+                raise ValueError("mixed ecmp/non-ecmp lanes")
+        ecmp = None
+        if base.ecmp_ports is not None:
+            width = max(t.ecmp_ports.shape[-1] for t in tables)
+            ecmp = np.full((len(tables),) + base.ecmp_ports.shape[:-1]
+                           + (width,), -1, dtype=base.ecmp_ports.dtype)
+            for i, t in enumerate(tables):
+                ecmp[i, ..., :t.ecmp_ports.shape[-1]] = t.ecmp_ports
+        return cls(
+            topo=base.topo, n_routers=base.n_routers, P=base.P, p=base.p,
+            nbr=np.stack([t.nbr for t in tables]),
+            rev_port=np.stack([t.rev_port for t in tables]),
+            port_toward=np.stack([t.port_toward for t in tables]),
+            dist=np.stack([t.dist for t in tables]),
+            ep_router=base.ep_router, failed_edges=None, ecmp_ports=ecmp,
+            lanes=len(tables))
+
+    def lane(self, i: int) -> "SimTables":
+        """Single-lane view of lane `i` of a stacked table set."""
+        if self.lanes == 1:
+            if i != 0:
+                raise IndexError(f"lane {i} of single-lane tables")
+            return self
+        return dataclasses.replace(
+            self, lanes=1, **{f: (None if getattr(self, f) is None
+                                  else getattr(self, f)[i])
+                              for f in self.LANE_FIELDS})
 
     @classmethod
     def from_numpy(cls, topo: Topology, *, nbr, rev_port, port_toward,

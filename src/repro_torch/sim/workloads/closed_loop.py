@@ -14,8 +14,15 @@ PRNG key every cycle and uses it only under VAL and UGAL; the port asks
 its random source for one ``route`` draw per cycle in those modes
 (`repro_torch.sim.random`) and for none under MIN and ECMP.
 
+Lanes (`repro_torch.sim.sweep.sweep_run_workload`): L (tables, seed)
+points of one workload and placement run in one loop, with per-lane
+message counters; the host loop stops when every lane is done, and a
+finished lane idles inertly (nothing sendable, queues drained, its
+start and done cycles guarded against rewrite).  `run_workload` is the
+degenerate L = 1.
+
 Not ported yet: source routing and the multi-job layer `run_jobs`
-(ROADMAP Queue 1 #8), telemetry (#9), lane sweeps (#7).
+(ROADMAP Queue 1 #8), telemetry (#9).
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import torch
 from ... import resolve_device
 from ..engine import BIG, SimConfig, SwitchCore, check_i32
 from ..packed import MAX_JOB_MSGS, MAX_JOBS, MSG_JOB_SHIFT, pack_record, pk_msg
-from ..random import TorchSource
+from ..random import LaneSources, TorchSource
 from ..tables import SimTables
 from .ir import Workload
 from .mapping import place_ranks
@@ -150,25 +157,48 @@ def run_workload(tables: SimTables, wl: Workload,
                  device=None, source=None) -> WorkloadResult:
     """Simulate `wl` to completion (or cfg.max_cycles) and report JCT.
 
-    Runs on `device` (default ``cuda``; raises without a card unless
-    ``device="cpu"`` is asked for).  VAL/UGAL draw from `source`
-    (default: a `TorchSource` seeded with `cfg.seed`), one ``route``
-    draw per cycle, also past completion to the chunk boundary."""
+    Ranks sit on `ep_of_rank`, else on the workload's own `ep_of_rank`
+    where it carries one (a lowered schedule bakes its placement in),
+    else where `cfg.placement` puts them.  Runs on `device` (default
+    ``cuda``; raises without a card unless ``device="cpu"`` is asked
+    for).  VAL/UGAL draw from `source` (default: a `TorchSource` seeded
+    with `cfg.seed`), one ``route`` draw per cycle, also past completion
+    to the chunk boundary."""
     dev = resolve_device(device)
+    _check_unported(cfg)
+    if ep_of_rank is None:
+        ep_of_rank = getattr(wl, "ep_of_rank", None)
+    if ep_of_rank is None:
+        ep_of_rank = place_ranks(tables, wl.n_ranks, cfg.placement,
+                                 seed=cfg.seed)
+    return closed_loop_lanes(tables, wl, [cfg], ep_of_rank, dev, [source])[0]
+
+
+def _check_unported(cfg: WorkloadSimConfig) -> None:
     if cfg.routing != "table":
         raise NotImplementedError(
             "routing='source' is not ported yet: ROADMAP Queue 1 #8")
     if cfg.telemetry:
         raise NotImplementedError(
             "telemetry is not ported yet: ROADMAP Queue 1 #9")
-    if ep_of_rank is None:
-        ep_of_rank = place_ranks(tables, wl.n_ranks, cfg.placement,
-                                 seed=cfg.seed)
-    ep_of_rank = np.asarray(ep_of_rank, dtype=np.int32)
 
-    core = SwitchCore(tables, cfg.to_sim_config(), device=dev)
-    if source is None:
-        source = TorchSource(cfg.seed, dev)
+
+def closed_loop_lanes(tables: SimTables, wl: Workload, cfgs: list,
+                      ep_of_rank, device, sources: list) -> list:
+    """`run_workload` for L = len(cfgs) lanes in one loop: lane i runs
+    `cfgs[i]` (which may differ from the others in seed only) on
+    `tables` (shared, or stacked with L lanes), every lane with ranks on
+    `ep_of_rank`, drawing from `sources[i]` (None: a `TorchSource`
+    seeded with its seed).  The host reads the device once per chunk and
+    stops when every lane has completed (or at cfg.max_cycles).  Returns
+    one `WorkloadResult` per lane, each equal to its sequential run's."""
+    cfg = cfgs[0]
+    L = len(cfgs)
+    dev = torch.device(device)
+    ep_of_rank = np.asarray(ep_of_rank, dtype=np.int32)
+    core = SwitchCore(tables, cfg.to_sim_config(), device=dev, lanes=L)
+    source = LaneSources([TorchSource(c.seed, dev) if s is None else s
+                          for c, s in zip(cfgs, sources, strict=True)])
     space = _build_space((wl,), (ep_of_rank,))
     n_ep, Qs = core.n_ep, core.Qs
     M = space.n_messages
@@ -185,9 +215,16 @@ def run_workload(tables: SimTables, wl: Workload,
     mbe = on_dev(_msgs_by_ep(space.src_ep, n_ep))           # [n_ep, kmax]
     mbe_c = mbe.clamp(min=0).long()
     mbe_live = mbe >= 0
+    mbe_l = mbe.expand(L, -1, -1)
     zeros_ep = torch.zeros((n_ep,), dtype=I32, device=dev)
-    ones_ep = torch.ones((n_ep,), dtype=I32, device=dev)
+    ones_ep = torch.ones((L * n_ep,), dtype=I32, device=dev)
     mid_mask = MAX_JOB_MSGS - 1
+    # lane l's message counters are row l of [L, M + 1]; flattened, its
+    # slot m is l (M + 1) + m (None for one lane)
+    msg_off = (torch.arange(L, dtype=I32, device=dev)[:, None] * (M + 1)
+               if L > 1 else None)
+    cycles_dev = torch.arange(cfg.max_cycles + cfg.chunk, dtype=I32,
+                              device=dev)
 
     # Per-message counters carry one spare slot at index M.  The
     # reference scatters with `.at[idx].add(1, mode="drop")` /
@@ -197,10 +234,13 @@ def run_workload(tables: SimTables, wl: Workload,
     # every duplicate index, so several flits of one message ejected in
     # the same cycle all count.
     nq_pkt, nq_count, sq_pkt, sq_count = core.init_queues()
-    sent = torch.zeros((M + 1,), dtype=I32, device=dev)
-    flits_del = torch.zeros((M + 1,), dtype=I32, device=dev)
-    start_c = torch.full((M + 1,), BIG, dtype=I32, device=dev)
-    done_c = torch.full((M,), BIG, dtype=I32, device=dev)
+    sent = torch.zeros((L, M + 1), dtype=I32, device=dev)
+    flits_del = torch.zeros((L, M + 1), dtype=I32, device=dev)
+    start_c = torch.full((L, M + 1), BIG, dtype=I32, device=dev)
+    done_c = torch.full((L, M), BIG, dtype=I32, device=dev)
+
+    def lane_slots(idx):
+        return (idx if msg_off is None else idx + msg_off).reshape(-1)
 
     def fold(acc, ej_net, ej_src, pkt_net, pkt_src, cycle):
         # per-message flit accounting (an integer sum: the grants' window
@@ -208,11 +248,12 @@ def run_workload(tables: SimTables, wl: Workload,
         # message id (job bits 0)
         delivered = acc
         g_net, g_src = ej_net >= 0, ej_src >= 0
-        mn = torch.where(g_net, pk_msg(pkt_net) & mid_mask, M).reshape(-1)
+        mn = torch.where(g_net, pk_msg(pkt_net) & mid_mask, M).reshape(L, -1)
         ms = torch.where(g_src, pk_msg(pkt_src) & mid_mask, M)
-        idx = torch.cat([mn, ms]).clamp(0, M).long()
-        flits_del.index_add_(0, idx, torch.ones_like(idx, dtype=I32))
-        return (delivered + g_net.sum(dtype=I32) + g_src.sum(dtype=I32))
+        idx = lane_slots(torch.cat([mn, ms], dim=1).clamp(0, M)).long()
+        flits_del.view(-1).index_add_(0, idx, torch.ones_like(idx, dtype=I32))
+        return (delivered + g_net.sum(dim=(1, 2, 3), dtype=I32)
+                + g_src.sum(dim=1, dtype=I32))
 
     def step(cycle: int):
         nonlocal nq_pkt, nq_count, sq_pkt, sq_count
@@ -220,17 +261,17 @@ def run_workload(tables: SimTables, wl: Workload,
         occ = core.occupancy(nq_count)
 
         # ---- ready set over the DAG (dense mask, carried counters)
-        done = flits_del[:M] >= size                        # [M]
-        dep_ok = torch.where(dep_live, done[dep_c], True).all(dim=1)
-        sendable = dep_ok & (sent[:M] < size)               # [M]
+        done = flits_del[:, :M] >= size                     # [L, M]
+        dep_ok = torch.where(dep_live, done[:, dep_c], True).all(dim=2)
+        sendable = dep_ok & (sent[:, :M] < size)            # [L, M]
 
         # ---- per-endpoint pick: lowest-id sendable message.  argmax of
         # a bool mask is cast to int first; torch and jnp both return
         # the first maximum
-        cand = mbe_live & sendable[mbe_c]
-        has = cand.any(dim=1)                               # [n_ep]
-        slot = torch.argmax(cand.to(I32), dim=1, keepdim=True)
-        mpick = torch.where(has, mbe.gather(1, slot)[:, 0], 0)
+        cand = mbe_live & sendable[:, mbe_c]                # [L, n_ep, kmax]
+        has = cand.any(dim=2)                               # [L, n_ep]
+        slot = torch.argmax(cand.to(I32), dim=2, keepdim=True)
+        mpick = torch.where(has, mbe_l.gather(2, slot)[..., 0], 0)
 
         # ---- inject one flit
         want = has & (sq_count < Qs)
@@ -239,44 +280,98 @@ def run_workload(tables: SimTables, wl: Workload,
         new_pkt = pack_record(dst_r, inter, cycle, zeros_ep, phase,
                               msg=fid[mpick])
         sq_pkt, sq_count = core.inject(sq_pkt, sq_count, want, new_pkt)
-        msel = torch.where(want, mpick, M).long()           # M = drop slot
-        sent.index_add_(0, msel, ones_ep)
-        start_c.scatter_reduce_(0, msel, torch.full_like(ones_ep, cycle),
-                                reduce="amin", include_self=True)
+        msel = lane_slots(torch.where(want, mpick, M)).long()  # M = drop
+        sent.view(-1).index_add_(0, msel, ones_ep)
+        start_c.view(-1).scatter_reduce_(
+            0, msel, torch.full_like(ones_ep, cycle), reduce="amin",
+            include_self=True)
 
         # ---- shared switch pipeline with the per-message fold
         nq_pkt, nq_count, sq_pkt, sq_count, delivered = core.alloc(
             nq_pkt, nq_count, sq_pkt, sq_count, occ, cycle, fold,
-            torch.zeros((), dtype=I32, device=dev))
+            torch.zeros((L,), dtype=I32, device=dev),
+            cycle_dev=cycles_dev[cycle:cycle + 1])
 
-        now_done = flits_del[:M] >= size
+        now_done = flits_del[:, :M] >= size
         done_c.masked_fill_(now_done & (done_c == BIG), cycle + 1)
-        return delivered, now_done.sum(dtype=I32)
+        return delivered, now_done.sum(dim=1, dtype=I32)
 
     per_cycle_dlv = []
-    completed = False
+    done_lane = np.zeros(L, dtype=bool)
     t = 0
     while t < cfg.max_cycles:
-        dlv = torch.empty((cfg.chunk + 1,), dtype=I32, device=dev)
+        dlv = torch.empty((cfg.chunk + 1, L), dtype=I32, device=dev)
         for i in range(cfg.chunk):
             dlv[i], n_done = step(t + i)
         dlv[cfg.chunk] = n_done
         host = dlv.cpu().numpy()                    # one sync per chunk
-        per_cycle_dlv.append(host[:cfg.chunk].astype(np.int64))
+        per_cycle_dlv.append(host[:cfg.chunk].T.astype(np.int64))
         t += cfg.chunk
         check_i32(nq_pkt=nq_pkt, nq_count=nq_count, sq_pkt=sq_pkt,
                   sq_count=sq_count, sent=sent, flits_del=flits_del,
                   start_c=start_c, done_c=done_c)
-        if int(host[cfg.chunk]) == M:
-            completed = True
+        done_lane = host[cfg.chunk] == M
+        if done_lane.all():
             break
     source.finish()
 
-    return _workload_result(
-        wl, cfg, ep_of_rank,
-        tuple(a[:M].cpu().numpy() for a in (sent, flits_del, start_c,
-                                             done_c)),
-        np.concatenate(per_cycle_dlv), completed, t)
+    dlv_all = np.concatenate(per_cycle_dlv, axis=1)         # [L, t]
+    state = [a[:, :M].cpu().numpy() for a in (sent, flits_del, start_c,
+                                              done_c)]
+    return [_workload_result(wl, c, ep_of_rank,
+                             tuple(a[i] for a in state), dlv_all[i],
+                             bool(done_lane[i]), t)
+            for i, c in enumerate(cfgs)]
+
+
+def sweep_run_workload_lanes(tables: SimTables, wl: Workload,
+                             cfg: Optional[WorkloadSimConfig] = None,
+                             seeds=None,
+                             ep_of_rank: Optional[np.ndarray] = None,
+                             device=None, sources=None) -> list:
+    """Lane-batched closed-loop runs over (tables, seed) lanes: the
+    implementation behind `repro_torch.sim.sweep.sweep_run_workload` (the
+    reference's `_sweep_run_workload`).  The placement must be the same
+    in every lane: a seed-sensitive placement with per-lane seeds is
+    refused unless `ep_of_rank` pins one."""
+    from ..sweep import _lane_count, _lane_sources
+
+    cfg = cfg or WorkloadSimConfig()
+    dev = resolve_device(device)
+    _check_unported(cfg)
+    if ep_of_rank is None:
+        ep_of_rank = getattr(wl, "ep_of_rank", None)
+    seeds_l = ([cfg.seed] if seeds is None
+               else [int(s) for s in np.atleast_1d(seeds)])
+    L = _lane_count([("tables", tables.lanes), ("seeds", len(seeds_l))]
+                    + ([] if sources is None
+                       else [("sources", len(sources))]))
+    seeds_l = seeds_l * (L if len(seeds_l) == 1 else 1)
+    cfgs = [dataclasses.replace(cfg, seed=s) for s in seeds_l]
+    sources = _lane_sources(sources, L)
+
+    if L == 1:
+        return [run_workload(tables.lane(0), wl, cfgs[0],
+                             ep_of_rank=ep_of_rank, device=dev,
+                             source=sources[0])]
+
+    if ep_of_rank is None:
+        # placement must be lane-invariant (it shapes msgs_by_ep); a
+        # seed-sensitive placement with per-lane seeds would silently
+        # break the sequential-equivalence contract, so refuse it
+        # instead of placing all lanes with one seed
+        tab0 = tables.lane(0)
+        placements = [place_ranks(tab0, wl.n_ranks, cfg.placement,
+                                  seed=s) for s in seeds_l]
+        if any(not np.array_equal(p, placements[0])
+               for p in placements[1:]):
+            raise ValueError(
+                f"placement {cfg.placement!r} depends on the seed, so "
+                f"per-lane seeds would place ranks differently per "
+                f"lane; pass ep_of_rank= explicitly to pin one "
+                f"placement for every lane")
+        ep_of_rank = placements[0]
+    return closed_loop_lanes(tables, wl, cfgs, ep_of_rank, dev, sources)
 
 
 def _workload_result(wl: Workload, cfg: WorkloadSimConfig,

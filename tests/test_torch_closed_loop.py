@@ -195,3 +195,22 @@ def test_run_workload_on_fabrics_matches_live_reference(case):
     port = run_workload(tt, wl_fn(), WorkloadSimConfig(**kw), device="cpu")
     assert ref.completed
     _assert_results_equal(port, ref)
+
+
+def test_run_workload_honours_the_workloads_own_placement():
+    """A workload that carries its own `ep_of_rank` (a lowered schedule
+    bakes its placement in) runs on that placement in both packages,
+    not on cfg.placement's."""
+    jt, tt = _tables(5)
+    wl = ring_all_reduce(16, 8)
+    pin = np.random.default_rng(3).permutation(tt.n_endpoints)[
+        :wl.n_ranks].astype(np.int32)
+    linear = run_workload(tt, wl, WorkloadSimConfig(mode="min"),
+                          device="cpu")
+    assert not np.array_equal(linear.ep_of_rank, pin)
+    wl.ep_of_rank = pin
+    ref = jax_run_workload(jt, wl, JaxCfg(mode="min", kernel_path="ref"))
+    port = run_workload(tt, wl, WorkloadSimConfig(mode="min"), device="cpu")
+    np.testing.assert_array_equal(ref.ep_of_rank, pin)
+    _assert_results_equal(port, ref)
+    assert port.makespan != linear.makespan

@@ -715,3 +715,139 @@ def test_fabric_closed_loop_kernel_path_matches_plain_path(cuda_device):
     assert runs[0].completed
     for f, v in vars(runs[0]).items():
         np.testing.assert_array_equal(v, getattr(runs[1], f), err_msg=f)
+
+
+# ---------------------------------------------------------------------------
+# the lane axis of a sweep (tests/test_torch_sweep.py holds the plain
+# versions' lane axis against the reference on the CPU)
+
+def alloc_lane_args(rng, L, N, P, V, PE, W):
+    """Random lane-batched allocation requests ([L, N, ...]), int32."""
+    PV = P * V
+    shapes = [(L, N, PV, W), (L, N, PV, W), (L, N, PV, W), (L, N, PV),
+              (L, N, PE, W), (L, N, PE, W), (L, N, PE, W), (L, N, PE)]
+    los = [-1, 0, 0, 0, -1, 0, 0, 0]
+    his = [P, 2, 2, 5, P, 2, 2, 5]
+    return [rng.integers(lo, hi, sh).astype(np.int32)
+            for lo, hi, sh in zip(los, his, shapes)]
+
+
+_LANE_TABLES = {}
+
+
+def _lane_tables(fabric):
+    """Healthy, masked (10% of the links, routes re-converged) and stale
+    (the same mask, dead ports only) host tables of SF q=7 ("sf7") or of
+    FT-3 p=6 with ECMP tables ("ft6"), built on the CPU."""
+    if fabric not in _LANE_TABLES:
+        from repro_torch.core import build_slimfly
+        from repro_torch.core.topologies import build_fattree3
+        from repro_torch.sim import SimTables
+        if fabric == "sf7":
+            tab = SimTables.build(build_slimfly(7), device="cpu")
+        else:
+            tab = SimTables.build(build_fattree3(p=6), device="cpu",
+                                  ecmp=True)
+        fe = failure_mask(tab.topo, seed=17, cut_router=False)
+        _LANE_TABLES[fabric] = [
+            tab, tab.with_failures(fe, device="cpu"),
+            tab.with_failures(fe, rebuild=False)]
+    return _LANE_TABLES[fabric]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [4, 6])
+def test_alloc_cuda_lane_axis_matches_plain(cuda_device, W):
+    """Five lanes with one cycle per lane (read from a device array, and
+    uploaded from the host): equal to the plain version and to a
+    single-lane launch per lane."""
+    rng = np.random.default_rng(W)
+    L, N, P, V, PE = 5, 97, 29, 4, 15
+    PV = P * V
+    kw = dict(W=W, P=P, V=V, PE=PE, p_budget=PE, NQ=N * PV,
+              R=N * PV + N * PE)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in alloc_lane_args(rng, L, N, P, V, PE, W)]
+    epr = torch.arange(N, dtype=torch.int32, device=cuda_device)
+    cycles = [17, 199_999, 0, 7919, 3]
+    cdev = torch.tensor(cycles, dtype=torch.int32, device=cuda_device)
+    before = alloc_rounds_cuda.launches
+    for cyc_dev in (cdev, None):
+        got = alloc_rounds_cuda(cycles, *args, epr, **kw, cycle_dev=cyc_dev)
+        want = alloc_rounds_ref(cycles, *args, epr, **kw)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert alloc_rounds_cuda.launches == before + 2
+    for i, c in enumerate(cycles):
+        one = alloc_rounds_cuda(c, *[a[i] for a in args], epr, **kw)
+        for g, o in zip(got, one):
+            torch.testing.assert_close(g[i], o, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="out of range"):
+        alloc_rounds_cuda([1, 2, 3, 4, -1], *args, epr, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ugal_g", [False, True])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_ugal_route_cuda_lane_axis_matches_plain(cuda_device, stacked,
+                                                 ugal_g):
+    """Three lanes of route choice in one launch, on shared (healthy) or
+    stacked (healthy, masked, stale) tables: equal to the plain version
+    and to a single-lane launch per lane."""
+    from repro_torch.sim.engine import BIG as BIG_S, OCC_CAP
+    tl = _lane_tables("sf7")
+    lanes = tl if stacked else [tl[0]] * 3
+    rng = np.random.default_rng(7)
+    t0 = lanes[0]
+    L, N, P, E, C = 3, t0.n_routers, t0.P, t0.n_endpoints, 4
+
+    def on(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            cuda_device).to(dtype)
+    dist = on(np.stack([t.dist for t in lanes]), torch.int16)
+    pt = on(np.stack([t.port_toward for t in lanes]), torch.int16)
+    nbr = on(np.stack([t.nbr for t in lanes]), torch.int32)
+    occ = on(rng.integers(0, 17, (L, N, P)), torch.int32)
+    occ = torch.where(nbr >= 0, occ, BIG_S).contiguous()
+    tables = (dist, pt, nbr) if stacked else (dist[0], pt[0], nbr[0])
+    src = on(t0.ep_router, torch.int32)
+    dst = src[on(rng.integers(0, E, (L, E)), torch.int64)].contiguous()
+    cands = on(rng.integers(0, N, (L, E, C)), torch.int32)
+    kw = dict(ugal_g=ugal_g, unreach=UNREACH, big=BIG_S, occ_cap=OCC_CAP)
+    before = ugal_route_cuda.launches
+    got = ugal_route_cuda(src, dst, cands, *tables, occ, **kw)
+    want = ugal_route_ref(src, dst, cands, *tables, occ, **kw)
+    assert ugal_route_cuda.launches == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    for i in range(L):
+        tab_i = [t[i] for t in tables] if stacked else tables
+        one = ugal_route_cuda(src, dst[i], cands[i], *tab_i, occ[i], **kw)
+        for g, o in zip(got, one):
+            torch.testing.assert_close(g[i], o, rtol=0, atol=0)
+    assert bool((want[1] == 0).any()) and bool((want[1] == 1).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ugal_g", "ecmp"])
+def test_sweep_kernel_path_matches_plain_path(cuda_device, mode):
+    """A mask-lane sweep on the card (healthy, masked, stale), kernel path
+    against plain path: every lane equal; allocation launched once per
+    cycle for all lanes, and so is the route kernel under UGAL."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.sim import SimConfig, make_traffic, sweep_simulate
+    tl = _lane_tables("sf7" if mode == "ugal_g" else "ft6")
+    tr = make_traffic(tl[0], "uniform")
+    cfg = dict(cycles=200, warmup=50, mode=mode, seed=3)
+    before = launch_counts()
+    rk = sweep_simulate(tl, tr, SimConfig(kernel_path="cuda", **cfg),
+                        rates=[0.3, 0.5, 0.7], device=cuda_device)
+    after = launch_counts()
+    rr = sweep_simulate(tl, tr, SimConfig(kernel_path="ref", **cfg),
+                        rates=[0.3, 0.5, 0.7], device=cuda_device)
+    assert after["alloc_rounds"] - before["alloc_rounds"] == 200
+    assert after["ugal_route"] - before["ugal_route"] == (
+        200 if mode == "ugal_g" else 0)
+    for k, r in zip(rk, rr):
+        for f, v in vars(k).items():
+            assert np.array_equal(v, getattr(r, f)), f
