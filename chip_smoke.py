@@ -148,7 +148,42 @@ Phases, one JSON line each; any failure exits non-zero:
     completes and the healthy lane's outcome equals GOLDEN_Q19;
 24. fig6_driver: the port's Fig 6 driver (`repro_torch.bench.fig6`) in
     smoke mode: its row names equal the reference's (FIG6_SMOKE_ROWS),
-    each curve's wall seconds, cycles/s and peak memory.
+    each curve's wall seconds, cycles/s and peak memory;
+25. tenants (this slice's main path, at full width): q=19 ->
+    build_routing (min-plus kernel) -> SimTables.build -> run_jobs of
+    five tenants (TENANTS_Q19: two 3-D stencils of 5,200 and 5,600
+    ranks, a 64-rank ring all-reduce, a 64-rank all-to-all and a
+    256-rank graph scatter, arriving at cycles 0-96; 11,184 ranks on
+    10,830 endpoints, so under "pack" the second stencil wraps onto the
+    first's endpoints and queues behind it), FIFO, MIN, chunk 256: each
+    job's admit, start and done cycles and flits, and the makespan,
+    equal to the reference's (GOLDEN_JOBS_Q19); then the same mix under
+    UGAL-L, seed 0, native random source: every job completes, flits
+    conserved.  Min-plus 6 launches in the build, allocation once per
+    cycle, the UGAL route kernel once per cycle under UGAL-L and never
+    under MIN; cycles/s, device operations, busy time and wall per
+    cycle (from two runs of 32 and 96 cycles, device activity profiled),
+    peak memory and set-up seconds;
+26. policies (q=19): emit_policy of a 64-rank ring all-reduce (8-flit
+    chunks split in 4) on a linear placement, MIN and diverse paths, with
+    the seconds of emission, the deadlock check and lowering; the MIN
+    policy source-routed equal to table MIN field for field; the diverse
+    policy completes with flits conserved; local_search (8 lanes, 3
+    generations, up to 4 chunks) with best <= baseline, the best and
+    baseline candidates as two lanes of one policy sweep equal to their
+    sequential source-routed runs; the UGAL route kernel never launches;
+    lane-cycles/s;
+27. paths_equal_jobs (q=7): kernel path against plain path with the
+    same seed: a four-job run_jobs under MIN and UGAL-L, FIFO and
+    backfill (one job queued behind another's endpoints), a
+    source-routed diverse policy and a 4-lane sweep_run_policies --
+    every field equal; and local_search's history (genome, makespan)
+    equal to the reference's (GOLDEN_SEARCH_Q7);
+28. jobs_drivers: the port's multi-tenant and schedule-search drivers
+    (`repro_torch.bench.multitenant`, `collective_search`) in smoke
+    mode: row names equal to the reference's (MULTITENANT_SMOKE_ROWS),
+    the search's row equal to the reference's (SEARCH_SMOKE_ROW), each
+    run's wall seconds, cycles/s and peak memory.
 
 Then a line {"kernels": [...]} with each kernel's launches on its main
 path (the open loop's for the simulator's three kernels, the serve
@@ -162,7 +197,9 @@ kernel's time under contract_ms); each simulator row also carries, under
 from the plain version at the new shapes (phase 18) and its times there;
 the allocation and UGAL rows also carry, under "sweep", their launches
 in the five-lane sweep (phase 21) and phase 20's lane-axis difference
-and times at L = 1 and L = 5; and the last line
+and times at L = 1 and L = 5; the three simulator rows carry, under
+"jobs", their launches in phase 25 (the routing build, the MIN and the
+UGAL-L job mix); and the last line
 {"ok": true, "device": {...}}.  Without CUDA, or without the repository
 around it, it fails before printing any result.
 """
@@ -1558,6 +1595,350 @@ def sweep_phases(dev, ctx: dict) -> dict:
     return {"report": sweep_report, "launches": launches_sweep}
 
 
+# Phase 25: the tenant mix at q=19 (arrival order = FIFO order): (name,
+# workload builder in repro_torch.sim.workloads, its arguments, arrival
+# cycle).  11,184 ranks on 10,830 endpoints: under "pack" stencil2 wraps
+# onto 354 of stencil's endpoints and queues behind it.
+TENANTS_Q19 = [
+    ("stencil", "stencil", ((20, 20, 13), 8), dict(iters=2), 0),
+    ("ring", "ring_all_reduce", (64, 8), {}, 24),
+    ("a2a", "all_to_all", (64, 4), {}, 48),
+    ("scatter", "graph_scatter", (256, 4), dict(iters=2, seed=0), 72),
+    ("stencil2", "stencil", ((20, 20, 14), 8), dict(iters=2), 96),
+]
+# Reference outcome of phase 25's MIN run, computed with the JAX package
+# (repro.sim.workloads.run_jobs, its default kernel_path: the plain path on
+# the CPU; jax 0.9.0) in 189 s:
+#   JAX_PLATFORMS=cpu PYTHONPATH=src python -c "
+#   from repro.core import build_slimfly
+#   from repro.sim import SimTables
+#   from repro.sim.workloads import (WorkloadSimConfig, Job, run_jobs,
+#       stencil, ring_all_reduce, all_to_all, graph_scatter)
+#   t = SimTables.build(build_slimfly(19))
+#   jobs = [Job('stencil', stencil((20, 20, 13), 8, iters=2), 0),
+#           Job('ring', ring_all_reduce(64, 8), 24),
+#           Job('a2a', all_to_all(64, 4), 48),
+#           Job('scatter', graph_scatter(256, 4, iters=2, seed=0), 72),
+#           Job('stencil2', stencil((20, 20, 14), 8, iters=2), 96)]
+#   r = run_jobs(t, jobs, WorkloadSimConfig(mode='min', chunk=256),
+#                policy='pack', queue='fifo')
+#   print(r.makespan, r.flits_delivered, {j.name: (j.admit_cycle, j.start,
+#         j.done, j.flits_delivered) for j in r.jobs})"
+# MIN draws no random numbers, so these values do not depend on the PRNG.
+# Per job: (admit cycle, first start, done cycle, flits delivered).
+GOLDEN_JOBS_Q19 = dict(
+    makespan=4679.0, flits=1_214_136,
+    jobs={"stencil": (0, 0, 756, 499_200), "ring": (24, 24, 1054, 64_512),
+          "a2a": (48, 48, 1206, 16_128), "scatter": (72, 72, 4679, 96_696),
+          "stencil2": (768, 768, 1601, 537_600)})
+# Phase 26: the collective the policies and the search schedule at q=19
+POLICY_Q19 = dict(kind="ring_all_reduce", ranks=64, flits=8, n_chunks=4)
+# Phase 27: the reference's schedule search at q=7 (repro.sim.workloads.
+# local_search, plain path on the CPU, jax 0.9.0; 13 s), the q=7 point of
+# benchmarks/collective_search.py:
+#   JAX_PLATFORMS=cpu PYTHONPATH=src python -c "
+#   from repro.core import build_slimfly
+#   from repro.core.routing import build_routing
+#   from repro.sim import SimTables
+#   from repro.sim.workloads import local_search
+#   from repro.sim.workloads.search import search_config
+#   topo = build_slimfly(7); rt = build_routing(topo, use_pallas=False)
+#   r = local_search(SimTables.build(topo, rt), rt, 'ring_all_reduce', 12,
+#                    16, search_config(chunk=64), generations=2, lanes=8)
+#   print([(s.genome.n_chunks, s.genome.path_set, s.genome.path_seed,
+#           s.genome.order_seed, s.makespan) for s in r.history])"
+# Source-routed MIN draws nothing, so the history is exact on any device.
+GOLDEN_SEARCH_Q7 = [
+    (1, "min", 0, None, 356.0), (2, "min", 0, None, 353.0),
+    (4, "min", 0, None, 353.0), (1, "diverse", 1, None, 356.0),
+    (4, "diverse", 2, None, 353.0), (2, "diverse", 3, None, 353.0),
+    (1, "diverse", 33005, 53298, 356.0), (2, "min", 47808, None, 353.0),
+    (2, "min", 36694, None, 353.0), (4, "diverse", 179, None, 353.0),
+    (2, "min", 350, None, 353.0), (4, "diverse", 42414, 16862, 374.0),
+    (4, "diverse", 42628, 24872, 369.0)]
+# Phase 28: the rows of the reference's drivers in smoke mode
+# (benchmarks/multitenant.py and benchmarks/collective_search.py with
+# REPRO_SMOKE=1); the search's row is exact (source-routed MIN)
+MULTITENANT_SMOKE_ROWS = [
+    f"multitenant/{f}/{p}/{j}" for f in ("sf", "df", "ft3")
+    for p in ("pack", "spread") for j in ("ring", "a2a", "collective")]
+SEARCH_SMOKE_ROW = dict(name="search/q5/allreduce", derived=225.0,
+                        baseline=228.0, speedup=1.0133, best="nc2/min/p0/o-",
+                        scored=13, lanes=8)
+
+
+def same_multi(a, b) -> bool:
+    """Every field of two MultiJobResults equal, each job's too."""
+    import numpy as np
+    for f, v in vars(a).items():
+        if f == "jobs":
+            if len(v) != len(b.jobs) or not all(
+                    same_results(x, y) for x, y in zip(v, b.jobs)):
+                return False
+        elif not np.array_equal(v, getattr(b, f)):
+            return False
+    return True
+
+
+def tenant_jobs(w):
+    """Phase 25's Job list, built with workloads module `w`."""
+    return [w.Job(name, getattr(w, fn)(*args, **kw), arrival)
+            for name, fn, args, kw, arrival in TENANTS_Q19]
+
+
+def ops_per_cycle(run_upto, lo: int = 32, hi: int = 96) -> dict:
+    """Device operations, device busy time and wall per cycle of a loop,
+    as the difference of two runs of `run_upto(n)` (n = lo and hi
+    cycles, whole chunks) over hi - lo cycles, each timed and then
+    profiled with device activity only (`repro_torch.bench.
+    sweep_profile.profile`), so the set-up's operations cancel; and the
+    longer run's device idle share of its profiled wall."""
+    from repro_torch.bench.sweep_profile import profile
+    got = {n: profile(lambda n=n: run_upto(n)) for n in (lo, hi)}
+
+    def per_cycle(key, scale=1.0):
+        return scale * (got[hi][key] - got[lo][key]) / (hi - lo)
+    return dict(cycles=(lo, hi), device_ops_per_cycle=per_cycle("ops"),
+                device_busy_ms_per_cycle=per_cycle("busy_s", 1e3),
+                wall_ms_per_cycle=per_cycle("wall_s", 1e3),
+                device_idle_share=1.0 - (got[hi]["busy_s"]
+                                         / got[hi]["wall_profiled_s"]))
+
+
+def jobs_phases(dev, ctx: dict) -> dict:
+    """Phases 25-28: job mixes, source-routed policies and the schedule
+    search.  `ctx` holds what earlier phases built (the q=7 tables).
+    Returns the kernels line's "jobs" entries (phase 25's launches)."""
+    import numpy as np
+    import torch
+    import repro_torch.sim.workloads as w
+    from repro_torch import kernels
+    from repro_torch.bench import collective_search, multitenant
+    from repro_torch.core import build_routing, build_slimfly
+    from repro_torch.dist import emit_policy
+    from repro_torch.sim import SimTables, sweep_run_policies
+    from repro_torch.sim.workloads.search import _pad_shapes, search_config
+
+    # ---- 25. the main path of this slice: five tenants at q=19
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    topo = build_slimfly(19)
+    rt = build_routing(topo)
+    tab = SimTables.build(topo, rt=rt)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    jobs = tenant_jobs(w)
+    t0 = time.perf_counter()
+    pl = w.place_jobs(tab, jobs, "pack")
+    place_s = time.perf_counter() - t0
+    launches = {"build": kernels.launch_counts()}
+    runs = {}
+    for mode in ("min", "ugal_l"):
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        runs[mode] = w.run_jobs(tab, jobs, w.WorkloadSimConfig(
+            mode=mode, chunk=256), policy="pack", queue="fifo")
+        torch.cuda.synchronize()
+        runs[mode + "_s"] = time.perf_counter() - t0
+        after = kernels.launch_counts()
+        launches[mode] = {k: after[k] - before[k] for k in after}
+    peak = torch.cuda.max_memory_allocated()
+    rm, ru = runs["min"], runs["ugal_l"]
+    got = dict(makespan=rm.makespan, flits=rm.flits_delivered,
+               jobs={j.name: (j.admit_cycle, j.start, j.done,
+                              j.flits_delivered) for j in rm.jobs})
+    total = sum(j.workload.total_flits for j in jobs)
+    n_min = -(-rm.cycles_run // 256) * 256
+    n_ugal = -(-ru.cycles_run // 256) * 256
+
+    def upto(n):
+        # the MIN mix's first n cycles (chunks of 32), for the counts
+        w.run_jobs(tab, jobs, w.WorkloadSimConfig(mode="min", chunk=32,
+                                                  max_cycles=n),
+                   placements=pl)
+    prof = ops_per_cycle(upto)
+    emit({"phase": "tenants", "q": 19, "routers": topo.n_routers,
+          "endpoints": topo.n_endpoints, "policy": "pack", "queue": "fifo",
+          "ranks": sum(j.n_ranks for j in jobs),
+          "messages": sum(j.n_messages for j in jobs), "flits": total,
+          "min": got, "min_cycles_run": rm.cycles_run,
+          "ugal_l": dict(makespan=ru.makespan, completed=ru.completed,
+                         flits=ru.flits_delivered,
+                         jobs={j.name: (j.admit_cycle, j.start, j.done,
+                                        j.flits_delivered) for j in ru.jobs}),
+          "build_routing_tables_s": build_s, "place_jobs_s": place_s,
+          "run_jobs_s": {m: runs[m + "_s"] for m in ("min", "ugal_l")},
+          "cycles_per_s": {"min": rm.cycles_run / runs["min_s"],
+                           "ugal_l": ru.cycles_run / runs["ugal_l_s"]},
+          "profile_min": prof, "single_job_closed_loop_ops_per_cycle": 255.2,
+          "max_memory_allocated": peak, "launches": launches,
+          "wall_s": time.perf_counter() - t_phase})
+    assert got == GOLDEN_JOBS_Q19, (got, GOLDEN_JOBS_Q19)
+    assert rm.completed and rm.flits_delivered == total
+    assert int(rm.per_cycle_delivered.sum()) == total
+    assert ru.completed and all(j.completed for j in ru.jobs), ru.makespan
+    assert ru.flits_delivered == total == int(ru.per_cycle_delivered.sum())
+    for jr, job in zip(ru.jobs, jobs):
+        assert jr.flits_delivered == job.workload.total_flits, jr.name
+    assert launches["build"]["minplus"] == MINPLUS_PER_BUILD, launches
+    assert launches["min"]["alloc_rounds"] == n_min, launches
+    assert launches["min"]["ugal_route"] == 0, launches
+    assert launches["ugal_l"]["alloc_rounds"] == n_ugal, launches
+    assert launches["ugal_l"]["ugal_route"] == n_ugal, launches
+    assert all(launches[m]["ugal_select"] == 0 for m in launches), launches
+
+    # ---- 26. explicit-path policies at q=19: source-routed MIN against
+    # table MIN, a diverse policy, and the schedule search
+    t_phase = time.perf_counter()
+    ep = w.place_ranks(tab, POLICY_Q19["ranks"], "linear")
+    ror = tab.ep_router[ep].astype(np.int64)
+    setup, lowered = {}, {}
+    for ps in ("min", "diverse"):
+        t0 = time.perf_counter()
+        pol = emit_policy(POLICY_Q19["kind"], rt, POLICY_Q19["ranks"],
+                          POLICY_Q19["flits"], ror,
+                          n_chunks=POLICY_Q19["n_chunks"], path_set=ps,
+                          path_seed=1, check_deadlock=False)
+        t1 = time.perf_counter()
+        pol.check_deadlock_free(topo.n_routers, 4)
+        t2 = time.perf_counter()
+        lowered[ps] = pol.lower(tab, ep)
+        t3 = time.perf_counter()
+        setup[ps] = dict(entries=pol.n_entries, emit_s=t1 - t0,
+                         deadlock_check_s=t2 - t1, lower_s=t3 - t2)
+    before = kernels.launch_counts()
+    cfg_src = w.WorkloadSimConfig(routing="source", mode="min", chunk=64)
+    t0 = time.perf_counter()
+    r_src = w.run_workload(tab, lowered["min"], cfg_src)
+    src_s = time.perf_counter() - t0
+    r_div = w.run_workload(tab, lowered["diverse"], cfg_src)
+    mid = kernels.launch_counts()
+    r_tab = w.run_workload(tab, lowered["min"],
+                           w.WorkloadSimConfig(mode="min", chunk=64))
+    t0 = time.perf_counter()
+    search = w.local_search(tab, rt, POLICY_Q19["kind"], POLICY_Q19["ranks"],
+                            POLICY_Q19["flits"], search_config(chunk=64),
+                            ep_of_rank=ep, generations=3, lanes=8,
+                            max_chunks=4)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    after = kernels.launch_counts()
+    # the best and the baseline candidates again, as two lanes of one
+    # policy sweep at the search's shapes, against their sequential runs
+    pad = _pad_shapes(tab, rt, POLICY_Q19["kind"], POLICY_Q19["ranks"],
+                      POLICY_Q19["flits"], ror, ep, 4, 4)
+    pair = [emit_policy(POLICY_Q19["kind"], rt, POLICY_Q19["ranks"],
+                        POLICY_Q19["flits"], ror, n_chunks=g.n_chunks,
+                        path_set=g.path_set, path_seed=g.path_seed,
+                        order_seed=g.order_seed).lower(tab, ep)
+            for g in (search.baseline.genome, search.best.genome)]
+    lanes = sweep_run_policies(tab, pair, search_config(chunk=64),
+                               pad_to=pad)
+    seq = [w.run_workload(tab, p, search_config(chunk=64)) for p in pair]
+    emit({"phase": "policies", "q": 19, **POLICY_Q19, "setup": setup,
+          "source_min": dict(makespan=r_src.makespan,
+                             flits=r_src.flits_delivered, wall_s=src_s,
+                             cycles_per_s=r_src.cycles_run / src_s),
+          "source_equals_table_min": same_results(r_src, r_tab),
+          "diverse": dict(makespan=r_div.makespan,
+                          completed=r_div.completed,
+                          flits=r_div.flits_delivered),
+          "search": dict(baseline=search.baseline.makespan,
+                         best=search.best.makespan,
+                         best_genome=search.best.genome.label(),
+                         scored=search.n_scored, elapsed_s=search_s,
+                         lane_cycles=search.lane_cycles,
+                         lane_cycles_per_s=search.lane_cycles / search_s,
+                         pad_to=list(pad)),
+          "lanes_equal_sequential": [same_results(a, b)
+                                     for a, b in zip(lanes, seq)],
+          "launches_source_runs": {k: mid[k] - before[k] for k in mid},
+          "launches_search": {k: after[k] - mid[k] for k in after},
+          "wall_s": time.perf_counter() - t_phase})
+    assert same_results(r_src, r_tab), "source-routed MIN != table MIN"
+    assert r_src.completed and r_div.completed
+    assert r_div.flits_delivered == int(lowered["diverse"].size.sum())
+    assert search.best.makespan <= search.baseline.makespan
+    for lane, s, scored in zip(lanes, seq, (search.baseline, search.best)):
+        assert same_results(lane, s)
+        assert (s.makespan, s.flits_delivered) == (scored.makespan,
+                                                   scored.flits)
+    assert mid["ugal_route"] == before["ugal_route"]
+    assert after["ugal_route"] == mid["ugal_route"]
+    assert after["alloc_rounds"] > mid["alloc_rounds"] > before["alloc_rounds"]
+
+    # ---- 27. kernel path against plain path at q=7: job mixes, a
+    # source-routed policy, a policy sweep; the search's history against
+    # the reference's
+    t0 = time.perf_counter()
+    tab7 = ctx["tab7"]
+    rt7 = build_routing(tab7.topo)
+    jobs7 = [w.Job("st", w.stencil((4, 5, 4), 4, iters=2), 0),
+             w.Job("ring", w.ring_all_reduce(24, 4), 10),
+             w.Job("a2a", w.all_to_all(12, 2), 20),
+             w.Job("sc", w.graph_scatter(32, 2, iters=2, seed=1), 30)]
+    pl7 = w.place_jobs(tab7, jobs7, "spread")
+    pl7[2] = pl7[1][:12]                # a2a queues behind ring
+    checked = []
+    for mode, queue in (("min", "fifo"), ("min", "backfill"),
+                        ("ugal_l", "fifo"), ("ugal_l", "backfill")):
+        out = [w.run_jobs(tab7, jobs7, w.WorkloadSimConfig(
+            mode=mode, chunk=64, seed=5, kernel_path=path),
+            placements=pl7, queue=queue) for path in ("cuda", "ref")]
+        assert out[0].completed and same_multi(out[0], out[1]), (mode, queue)
+        assert out[0].job("a2a").queue_delay > 0
+        checked.append(f"run_jobs/{mode}/{queue}")
+    ep7 = w.place_ranks(tab7, 12, "linear")
+    ror7 = tab7.ep_router[ep7].astype(np.int64)
+    genomes = [dict(), dict(n_chunks=2), dict(path_set="diverse", path_seed=1),
+               dict(n_chunks=4, path_set="diverse", path_seed=2,
+                    order_seed=7)]
+    wls7 = [emit_policy("ring_all_reduce", rt7, 12, 16, ror7, **g).lower(
+        tab7, ep7) for g in genomes]
+    cfg7 = dict(routing="source", mode="min", chunk=64)
+    div = [w.run_workload(tab7, wls7[2], w.WorkloadSimConfig(
+        kernel_path=path, **cfg7)) for path in ("cuda", "ref")]
+    assert div[0].completed and same_results(div[0], div[1])
+    checked.append("run_workload/source/diverse")
+    sw = [sweep_run_policies(tab7, wls7, w.WorkloadSimConfig(
+        kernel_path=path, **cfg7)) for path in ("cuda", "ref")]
+    for a, b in zip(*sw):
+        assert a.completed and same_results(a, b)
+    checked.append("sweep_run_policies/4 lanes")
+    hist = w.local_search(tab7, rt7, "ring_all_reduce", 12, 16,
+                          search_config(chunk=64), generations=2, lanes=8)
+    got_hist = [(s.genome.n_chunks, s.genome.path_set, s.genome.path_seed,
+                 s.genome.order_seed, s.makespan) for s in hist.history]
+    emit({"phase": "paths_equal_jobs", "q": 7, "equal": True,
+          "checked": checked, "search_history_equal":
+          got_hist == GOLDEN_SEARCH_Q7, "wall_s": time.perf_counter() - t0})
+    assert got_hist == GOLDEN_SEARCH_Q7, got_hist
+
+    # ---- 28. the port's multi-tenant and schedule-search drivers
+    t0 = time.perf_counter()
+    mt_rows, mt_entries = multitenant.run("smoke", out=os.path.join(
+        ROOT, "chiprun_out", "multitenant_torch_smoke.json"))
+    cs_rows, cs_entries = collective_search.run("smoke", out=os.path.join(
+        ROOT, "chiprun_out", "collective_search_torch_smoke.json"))
+    cs_row = {k: cs_rows[0][k] for k in SEARCH_SMOKE_ROW}
+    emit({"phase": "jobs_drivers", "mode": "smoke",
+          "multitenant_rows": mt_rows, "search_rows": cs_rows,
+          "runs": [dict(name=e.name, wall_s=e.wall_s, first_call_s=e.compile_s,
+                        cycles_per_s=e.cycles_per_sec,
+                        peak_mem_bytes=e.peak_mem_bytes)
+                   for e in mt_entries + cs_entries],
+          "names_equal_reference": [r["name"] for r in mt_rows]
+          == MULTITENANT_SMOKE_ROWS,
+          "search_row_equals_reference": cs_row == SEARCH_SMOKE_ROW,
+          "wall_s": time.perf_counter() - t0})
+    assert [r["name"] for r in mt_rows] == MULTITENANT_SMOKE_ROWS
+    assert all(r["completed"] for r in mt_rows), mt_rows
+    assert cs_row == SEARCH_SMOKE_ROW, cs_row
+    return {"launches": launches}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2010,6 +2391,13 @@ def main() -> int:
         captured=captured, captured_route=captured_route, tab_o=tab_o,
         ro=ro, open_cycles_per_s=open_cps, tab_d=tab_d, tab_s=tab_s,
         tables=tables, wl=wl, tab7=tab7, tab7m=tab7m, tab7s=tab7s, wl7=wl7))
+    jobs = jobs_phases(dev, dict(tab7=tab7))             # phases 25-28
+
+    def jobs_entry(kernel: str) -> dict:
+        # the kernel's launches in phase 25: the routing build, the MIN
+        # job mix and the UGAL-L job mix
+        return {"launches": {run: n[kernel]
+                             for run, n in jobs["launches"].items()}}
 
     def fig6_entry(kernel: str, key: str) -> dict:
         # the kernel's launches in each phase-16 run, and phase 18's
@@ -2036,7 +2424,7 @@ def main() -> int:
              launches=launches_open["minplus"],
              launches_closed_loop=launches["minplus"], bound_by="operations",
              library_ms=None, fig6=fig6_entry("minplus", "minplus"),
-             **report["minplus"]),
+             jobs=jobs_entry("minplus"), **report["minplus"]),
         dict(name="alloc_rounds", route="cuda", source=src + "alloc.cu",
              replaces="src/repro/kernels/alloc.py:77",
              launches=launches_open["alloc_rounds"],
@@ -2044,14 +2432,14 @@ def main() -> int:
              library_ms=None,
              fig6=fig6_entry("alloc_rounds", "alloc_rounds"),
              sweep=sweep_entry("alloc_rounds", "alloc_rounds"),
-             **report["alloc_rounds"]),
+             jobs=jobs_entry("alloc_rounds"), **report["alloc_rounds"]),
         dict(name="ugal_select", route="cuda", source=src + "ugal.cu",
              replaces="src/repro/kernels/alloc.py:170",
              launches=launches_open["ugal_route"],
              launches_closed_loop=launches["ugal_route"], bound_by="bytes",
              library_ms=None, fig6=fig6_entry("ugal_route", "ugal_select"),
              sweep=sweep_entry("ugal_route", "ugal_select"),
-             **report["ugal_select"]),
+             jobs=jobs_entry("ugal_route"), **report["ugal_select"]),
         dict(name="decode_attention", route="cuda",
              source=src + "attn_decode.cu",
              replaces="src/repro/kernels/attn_decode.py:81",

@@ -6,4 +6,8 @@
                  (``python -m repro_torch.bench.fig6``)
 - sweep_profile: an L-lane sweep against L sequential runs under the
                  profiler (``python -m repro_torch.bench.sweep_profile``)
+- multitenant:   co-located job interference, SF against DF and FT-3
+                 (``python -m repro_torch.bench.multitenant``)
+- collective_search: the schedule search over collective policies
+                 (``python -m repro_torch.bench.collective_search``)
 """

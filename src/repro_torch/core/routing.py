@@ -9,15 +9,16 @@ adjacency: routes re-converge around dead links, and pairs the mask
 disconnects get ``dist = UNREACH`` and ``next_hop = -1``.  With
 ``equal_cost_sets=True`` the tables also hold every minimal next hop
 (`RoutingTables.next_hops_all`, the ECMP sets), built one router at a
-time in numpy.  The channel-dependency-graph deadlock check, channel
-loads and the routed resiliency metrics are not part of the port yet
-(ROADMAP Queue 1 #8 and #10).
+time in numpy.  `valiant_path`, `assign_vcs`, the channel-dependency
+graph and its deadlock check (`is_deadlock_free`, Kahn's sort) are
+numpy copies of the reference's.  Channel loads and the routed
+resiliency metrics are not part of the port yet (ROADMAP Queue 1 #10).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -26,7 +27,8 @@ from ..kernels import apsp
 from .topology import Topology, masked_adjacency, normalize_failed_edges
 
 __all__ = ["UNREACH", "EqualCostSets", "RoutingTables", "build_routing",
-           "equal_cost_next_hops"]
+           "equal_cost_next_hops", "valiant_path", "assign_vcs",
+           "channel_dependency_graph", "is_deadlock_free"]
 
 # Hop-distance sentinel for pairs disconnected by link failures (int16,
 # and the int32 sum of two stays far from overflow), as in the reference.
@@ -166,3 +168,72 @@ def build_routing(topo: Topology, device=None, kernel_path: str = "auto",
         failed_edges=failed_edges,
         next_hops_all=(equal_cost_next_hops(adj, dist) if equal_cost_sets
                        else None))
+
+
+def valiant_path(rt: RoutingTables, s: int, d: int, r_inter: int) -> List[int]:
+    """VAL (§IV-B): minimal path s -> r_inter, then r_inter -> d."""
+    first = rt.min_path(s, r_inter)
+    second = rt.min_path(r_inter, d)
+    return first + second[1:]
+
+
+def assign_vcs(path: Sequence[int]) -> List[int]:
+    """§IV-D: hop i uses VC i (2 VCs suffice for MIN on D=2, 4 for VAL)."""
+    return list(range(len(path) - 1))
+
+
+def channel_dependency_graph(paths: Sequence[Sequence[int]],
+                             n_routers: int,
+                             vcs_of: Optional[Sequence[Sequence[int]]] = None
+                             ) -> Tuple[np.ndarray, int]:
+    """The CDG over (directed channel, VC) nodes of a path set: sorted
+    [E, 2] int64 edges and the node count.
+
+    ``vcs_of``, when given, supplies each path's per-hop VC list (len(path)
+    - 1 entries), e.g. the engine's clamped assignment ``min(vc_class +
+    hop, V - 1)`` of explicit-path policies; default: the unclamped
+    hop-indexed assignment (`assign_vcs`).  Channel (u -> v) on vc is
+    node vc * N_r^2 + u * N_r + v."""
+    deps = set()
+    max_vc = 0
+    for pi, path in enumerate(paths):
+        vcs = assign_vcs(path) if vcs_of is None else list(vcs_of[pi])
+        assert len(vcs) == len(path) - 1, (len(vcs), len(path))
+        if vcs:
+            max_vc = max(max_vc, max(vcs))
+        for i in range(len(path) - 2):
+            u, v, w = path[i], path[i + 1], path[i + 2]
+            a = vcs[i] * n_routers * n_routers + u * n_routers + v
+            b = vcs[i + 1] * n_routers * n_routers + v * n_routers + w
+            deps.add((a, b))
+    n_nodes = (max_vc + 1) * n_routers * n_routers
+    edges = np.array(sorted(deps), dtype=np.int64).reshape(-1, 2)
+    return edges, n_nodes
+
+
+def is_deadlock_free(paths: Sequence[Sequence[int]], n_routers: int,
+                     vcs_of: Optional[Sequence[Sequence[int]]] = None
+                     ) -> bool:
+    """Kahn topological sort on the CDG: acyclic <=> deadlock-free under
+    the given VC assignment (hop-indexed when ``vcs_of`` is omitted)."""
+    edges, _ = channel_dependency_graph(paths, n_routers, vcs_of)
+    if len(edges) == 0:
+        return True
+    nodes, inv = np.unique(edges, return_inverse=True)
+    e = inv.reshape(-1, 2)
+    n = len(nodes)
+    indeg = np.zeros(n, dtype=np.int64)
+    np.add.at(indeg, e[:, 1], 1)
+    out_lists: List[List[int]] = [[] for _ in range(n)]
+    for a, b in e:
+        out_lists[a].append(b)
+    stack = list(np.nonzero(indeg == 0)[0])
+    seen = 0
+    while stack:
+        v = stack.pop()
+        seen += 1
+        for w in out_lists[v]:
+            indeg[w] -= 1
+            if indeg[w] == 0:
+                stack.append(w)
+    return seen == n

@@ -39,7 +39,14 @@ beyond each extra lane's own draws.  Each lane draws from its own
 source (`LaneSources`), so lane i equals the sequential run of its
 point.
 
-Not ported yet: source routing (ROADMAP Queue 1 #8), telemetry (#9).
+Source routing (`SwitchCore.bind_source_routes`): a copy of the core
+whose desires come from each message's own explicit path
+(`repro_torch.sim.workloads.policy`) instead of the tables; the route
+choice, allocation, arrivals and compaction are unchanged.  The paths
+are one table shared by every lane, or one per lane (a schedule
+search's candidates), read at row l M + m.
+
+Not ported yet: telemetry (ROADMAP Queue 1 #9).
 
 Indexing.  jnp clamps an out-of-range gather index and wraps a negative
 one; torch raises on an index past the end and wraps a negative one.
@@ -53,8 +60,9 @@ which reproduces the reference's wrap of a -1 router (see
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -65,7 +73,7 @@ from ..kernels import alloc_rounds, ugal_route
 from ..kernels.ref import bump_candidates
 from ..kernels._cuda import KERNEL_PATHS
 from .packed import (MAX_ROUTERS, PK, bump_hops_word, pack_record, pk_dst,
-                     pk_hops, pk_inter, pk_phase, pk_time)
+                     pk_hops, pk_inter, pk_msg, pk_phase, pk_time)
 from .random import LaneSources, TorchSource
 from .tables import SimTables
 from .traffic import Traffic
@@ -254,6 +262,9 @@ class SwitchCore:
         else:
             self.ep_lo = on_dev(lane[:, None, None] * n_ep, I32)
             self.ep_hi = self.ep_lo + (n_ep - 1)
+        # table-routed; bind_source_routes switches a copy to explicit
+        # per-message paths
+        self.src_route = None
 
     # -- queue state ---------------------------------------------------------
     def init_queues(self) -> tuple:
@@ -372,6 +383,47 @@ class SwitchCore:
         out_vc = pk_hops(pkt).clamp(max=self.V - 1)
         return out_port, out_vc, eject
 
+    def bind_source_routes(self, route_port, vc_base, to_gid: Callable,
+                           per_lane: bool = False) -> "SwitchCore":
+        """Shallow copy in SOURCE-ROUTED mode.
+
+        `route_port [M, H]` int32 gives the output port message m takes
+        at hop h (indexed by the packed hop counter; a negative entry
+        means "this router is the terminal hop: eject"), and `vc_base
+        [M]` int32 the message's VC class: hop h rides VC ``min(vc_base
+        + h, V - 1)``.  `to_gid` maps the packed MSG field (int32) to a
+        message id in [0, M).  With `per_lane`, both hold L stacked
+        tables of M rows each ([L M, H] and [L M]), and lane l reads row
+        l M + m.  The tables' route choice is bypassed; occupancy,
+        allocation, arrivals and compaction are unchanged."""
+        c = copy.copy(self)
+        M = route_port.shape[0] // (self.L if per_lane else 1)
+        c.src_route = (route_port, vc_base, to_gid, M)
+        if per_lane:
+            base = torch.arange(self.L, dtype=I32, device=self.device) * M
+            c.src_lane_rows = (base.view(-1, 1, 1, 1, 1), base.view(-1, 1, 1))
+        else:
+            c.src_lane_rows = (None, None)
+        return c
+
+    def _desires_src(self, pkt, lane_rows: Optional[torch.Tensor]):
+        """Source-routed desires of window records: (out port, out VC,
+        eject).  Hop h of message m wants ``route_port[m, min(h, H -
+        1)]``.  Garbage records in zero-filled or stale queue slots read
+        a clamped row harmlessly: the allocation masks every request by
+        the cycle-start queue depth, so they are never granted.
+        `lane_rows` ([L, 1, ...] row offsets, or None when every lane
+        shares one table) moves lane l's records to its own rows."""
+        route_port, vc_base, to_gid, M = self.src_route
+        H = route_port.shape[1]
+        hops = pk_hops(pkt)
+        row = to_gid(pk_msg(pkt)).clamp(0, M - 1)
+        if lane_rows is not None:
+            row = row + lane_rows
+        out_port = route_port[row, hops.clamp(max=H - 1)]
+        out_vc = (vc_base[row] + hops).clamp(max=self.V - 1)
+        return out_port, out_vc, out_port < 0
+
     # -- allocation ----------------------------------------------------------
     def alloc(self, nq_pkt, nq_count, sq_pkt, sq_count, occ, cycle: int,
               eject_fold: Callable, eject_acc, cycle_dev=None):
@@ -407,10 +459,16 @@ class SwitchCore:
         win_net = head_window(nq_pkt, Qn)                    # [L,N,P,V,W,PK]
         win_src = head_window(sq_pkt, Qs)                    # [L,n_ep,W,PK]
 
-        n_out, n_vc, n_ej = self._desires(win_net, self.loc_r, occ,
-                                          (self.tab_r, self.st_r))
-        s_out, s_vc, s_ej = self._desires(win_src, self.loc_e, occ,
-                                          (self.tab_e, self.st_e))
+        if self.src_route is None:
+            n_out, n_vc, n_ej = self._desires(win_net, self.loc_r, occ,
+                                              (self.tab_r, self.st_r))
+            s_out, s_vc, s_ej = self._desires(win_src, self.loc_e, occ,
+                                              (self.tab_e, self.st_e))
+        else:
+            n_out, n_vc, n_ej = self._desires_src(win_net,
+                                                  self.src_lane_rows[0])
+            s_out, s_vc, s_ej = self._desires_src(win_src,
+                                                  self.src_lane_rows[1])
         nq_rows = nq_count.reshape(L * N, P, V)
 
         def space_of(tab_r, st_r, out, vc):

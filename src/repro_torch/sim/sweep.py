@@ -23,6 +23,9 @@ source per lane (e.g. a `ReplaySource` each).
 - `sweep_run_workload`: the closed loop over (seed, tables) lanes; the
   host loop stops when every lane has completed (a finished lane idles
   inertly);
+- `sweep_run_policies`: the source-routed closed loop over lanes that
+  each run a different lowered schedule (the schedule search's
+  evaluator);
 - L == 1 calls `simulate` / `run_workload` itself, so callers can
   sweep unconditionally.
 
@@ -161,9 +164,14 @@ def sweep_run_workload(tables: TablesLanes, wl, cfg=None,
         device=device, sources=sources)
 
 
-def sweep_run_policies(tables: SimTables, wls, cfg=None,
-                       pad_to=None) -> list:
-    """Lane-batched scoring of lowered schedules (the reference's
-    `sweep_run_policies`): needs source routing and `policy.py`."""
-    raise NotImplementedError(
-        "sweep_run_policies is not ported yet: ROADMAP Queue 1 #8")
+def sweep_run_policies(tables: SimTables, wls, cfg=None, pad_to=None,
+                       device=None) -> list:
+    """Score L candidate schedules (lowered PolicyWorkloads) in ONE
+    lane-batched source-routed run, every lane a different schedule
+    padded to common shapes (`pad_to` = (M, dmax, kmax, hmax)) on shared
+    tables.  Returns [WorkloadResult] * L, each equal to the sequential
+    `run_workload(routing="source")` of its candidate."""
+    from .workloads import closed_loop
+
+    return closed_loop._sweep_run_policies(tables, wls, cfg, pad_to=pad_to,
+                                           device=device)

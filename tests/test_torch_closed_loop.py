@@ -149,9 +149,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 UNPORTED = {
+    # source routing is ported; its telemetry is not
     "run_workload-source": lambda tt: run_workload(
-        tt, ring_all_reduce(4, 2), WorkloadSimConfig(routing="source"),
-        device="cpu"),
+        tt, ring_all_reduce(4, 2),
+        WorkloadSimConfig(routing="source", telemetry=True), device="cpu"),
     "run_workload-telemetry": lambda tt: run_workload(
         tt, ring_all_reduce(4, 2), WorkloadSimConfig(telemetry=True),
         device="cpu"),

@@ -851,3 +851,96 @@ def test_sweep_kernel_path_matches_plain_path(cuda_device, mode):
     for k, r in zip(rk, rr):
         for f, v in vars(k).items():
             assert np.array_equal(v, getattr(r, f)), f
+
+
+# ---------------------------------------------------------------------------
+# job mixes, source routing and policy sweeps (tests/test_torch_jobs.py and
+# tests/test_torch_policy.py hold the plain versions against the reference
+# on the CPU)
+
+def _jobs_q7(w):
+    return [w.Job("st", w.stencil((4, 5, 4), 4, iters=2), 0),
+            w.Job("ring", w.ring_all_reduce(24, 4), 10),
+            w.Job("a2a", w.all_to_all(12, 2), 20),
+            w.Job("sc", w.graph_scatter(32, 2, iters=2, seed=1), 30)]
+
+
+def _multi_equal(a, b):
+    for f, v in vars(a).items():
+        if f == "jobs":
+            for x, y in zip(v, b.jobs):
+                for g, u in vars(x).items():
+                    assert np.array_equal(u, getattr(y, g)), (x.name, g)
+        else:
+            assert np.array_equal(v, getattr(b, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,queue", [("min", "fifo"), ("min", "backfill"),
+                                        ("ugal_l", "fifo")])
+def test_run_jobs_kernel_path_matches_plain_path(cuda_device, mode, queue):
+    """A four-job q=7 mix, two of its jobs on one set of endpoints (the
+    admission queue serialises them): kernels against plain versions,
+    every field equal; allocation once per cycle, and the UGAL route
+    kernel once per cycle under UGAL-L."""
+    import repro_torch.sim.workloads as w
+    from repro_torch.kernels import launch_counts
+    tab = _lane_tables("sf7")[0]
+    jobs = _jobs_q7(w)
+    pl = w.place_jobs(tab, jobs, "spread")
+    pl[2] = pl[1][:12]                  # a2a waits for ring's endpoints
+    cfg = dict(mode=mode, chunk=64, seed=5)
+    before = launch_counts()
+    rk = w.run_jobs(tab, jobs, w.WorkloadSimConfig(kernel_path="cuda", **cfg),
+                    placements=pl, queue=queue, device=cuda_device)
+    after = launch_counts()
+    rr = w.run_jobs(tab, jobs, w.WorkloadSimConfig(kernel_path="ref", **cfg),
+                    placements=pl, queue=queue, device=cuda_device)
+    assert rk.completed and rk.job("a2a").queue_delay > 0
+    n = -(-rk.cycles_run // 64) * 64
+    assert after["alloc_rounds"] - before["alloc_rounds"] == n
+    assert after["ugal_route"] - before["ugal_route"] == (
+        n if mode == "ugal_l" else 0)
+    _multi_equal(rk, rr)
+
+
+@pytest.mark.cuda
+def test_policy_sweep_kernel_path_matches_plain_path(cuda_device):
+    """Four ragged source-routed candidates at q=7 in one sweep, kernels
+    against plain versions: every lane equal, and equal to its sequential
+    run; the UGAL route kernel never launches on source-routed runs."""
+    from repro_torch.core import build_routing, build_slimfly
+    from repro_torch.dist import emit_policy
+    from repro_torch.kernels import launch_counts
+    from repro_torch.sim import SimTables, sweep_run_policies
+    from repro_torch.sim.workloads import (WorkloadSimConfig, place_ranks,
+                                           run_workload)
+    rt = build_routing(build_slimfly(7), device="cpu")
+    tab = SimTables.build(rt.topo, rt=rt, device="cpu")
+    ep = place_ranks(tab, 12, "linear")
+    ror = tab.ep_router[ep].astype(np.int64)
+    genomes = [dict(), dict(n_chunks=2), dict(path_set="diverse", path_seed=1),
+               dict(n_chunks=4, path_set="diverse", path_seed=2,
+                    order_seed=7)]
+    wls = [emit_policy("ring_all_reduce", rt, 12, 16, ror, **g).lower(tab, ep)
+           for g in genomes]
+    cfg = dict(routing="source", mode="min", chunk=64)
+    before = launch_counts()
+    lanes = sweep_run_policies(tab, wls, WorkloadSimConfig(kernel_path="cuda",
+                                                           **cfg),
+                               device=cuda_device)
+    seq = run_workload(tab, wls[3], WorkloadSimConfig(kernel_path="cuda",
+                                                      **cfg),
+                       device=cuda_device)
+    after = launch_counts()
+    plain = sweep_run_policies(tab, wls, WorkloadSimConfig(kernel_path="ref",
+                                                           **cfg),
+                               device=cuda_device)
+    assert after["ugal_route"] == before["ugal_route"]
+    assert after["alloc_rounds"] > before["alloc_rounds"]
+    for k, r in zip(lanes, plain):
+        assert k.completed
+        for f, v in vars(k).items():
+            assert np.array_equal(v, getattr(r, f)), f
+    for f, v in vars(seq).items():
+        assert np.array_equal(v, getattr(lanes[3], f)), f

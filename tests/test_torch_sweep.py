@@ -191,8 +191,10 @@ def test_unported_sweep_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #9"):
         sweep_simulate(tl[0], tr, SimConfig(telemetry=True), rates=[0.1, 0.2],
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #8"):
-        sweep_run_policies(tl[0], [])
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #9"):
+        sweep_run_policies(tl[0], [ring_all_reduce(4, 2)],
+                           WorkloadSimConfig(routing="source", telemetry=True),
+                           device="cpu")
 
 
 def test_stack_pads_and_validates_as_reference():
