@@ -184,6 +184,44 @@ Phases, one JSON line each; any failure exits non-zero:
     mode: row names equal to the reference's (MULTITENANT_SMOKE_ROWS),
     the search's row equal to the reference's (SEARCH_SMOKE_ROW), each
     run's wall seconds, cycles/s and peak memory.
+29. telemetry (this slice's main path, at full width): q=19 built from
+    scratch -> simulate with OPEN_LOOP_CFG (Fig 6a full mode, UGAL-L at
+    0.5, seed 0, native source) with counters, then with counters and a
+    trace ring (TEL_TRACE: 1/256 of the flows, 65,536 events): every
+    core field equal to phase 5's telemetry-off run; grants == channel
+    forwards + ejections; no channel above one flit per cycle; on phase
+    9's degraded fabric with counters, dead channels forward nothing
+    and the run equals phase 9's; events kept and dropped, spans; the
+    q=19 stencil of phase 4 with counters and trace: GOLDEN_Q19 and the
+    conservation identities; device operations, busy ms and wall per
+    cycle with telemetry off, counters, and counters and trace in the
+    open loop (the difference of two profiled runs), and the aten
+    operations the telemetry-off open and closed loops dispatch per
+    cycle, equal to the parent
+    tree's (OFF_DISPATCH_OPEN, OFF_DISPATCH_CLOSED); the bytes of the
+    heatmap and the perfetto trace written to chiprun_out/.  Min-plus 6
+    launches in the build, allocation and the UGAL route kernel once per
+    cycle in each run;
+30. telemetry_lanes: Fig 6a's five-lane q=19 sweep with counters (depth
+    cut to 1000 cycles, TEL_SWEEP_CFG), each lane's counters and core
+    fields equal to its sequential run's; at
+    q=7, kernel path against plain path with counters and a trace ring
+    under min, ugal_l, ugal_g and ecmp (FT-3 p=4), and a UGAL-L closed
+    loop: counters and rings equal element for element;
+31. resiliency (at full width): routed_resilience_sweep on Slim Fly
+    q=19, Dragonfly h=7 and FT-3 p=22 (10 samples, fractions 0.05-0.50,
+    seed 7): each fraction's samples in one stacked APSP, one batched
+    min-plus launch per squaring (6 + 10 ceil(log2 n) launches per
+    sweep), each fraction's batch again through the kernel and the
+    plain version, exactly equal; seconds and peak memory per sweep;
+    the batched squaring's time at each fabric's [10, n, n] beside its
+    bounds; metric_after_failures with the kernel engine equal to the
+    scipy engine at q=19, 30%, for disconnect and diameter; the q=7
+    sweep equal to the reference's (GOLDEN_ROUTED_Q7);
+32. resiliency_drivers: the port's Table III, faults-sweep and
+    telemetry-export drivers in smoke mode: rows equal to the
+    reference's (TABLE3_SMOKE_ROWS, FAULTS_SMOKE_ROWS; the telemetry
+    driver's names, TELEMETRY_SMOKE_ROWS), wall seconds.
 
 Then a line {"kernels": [...]} with each kernel's launches on its main
 path (the open loop's for the simulator's three kernels, the serve
@@ -199,7 +237,10 @@ the allocation and UGAL rows also carry, under "sweep", their launches
 in the five-lane sweep (phase 21) and phase 20's lane-axis difference
 and times at L = 1 and L = 5; the three simulator rows carry, under
 "jobs", their launches in phase 25 (the routing build, the MIN and the
-UGAL-L job mix); and the last line
+UGAL-L job mix), under "telemetry" their launches in phase 29 (the
+build and the two telemetry runs), and under "resiliency" their
+launches in each phase-31 sweep (min-plus also its batched squaring's
+times and bounds at the three fabrics' [10, n, n]); and the last line
 {"ok": true, "device": {...}}.  Without CUDA, or without the repository
 around it, it fails before printing any result.
 """
@@ -256,6 +297,9 @@ GOLDEN_OPEN = {
 ACCEPTED_RTOL, LATENCY_RTOL = 0.01, 0.03
 OPEN_LOOP_CFG = dict(injection_rate=0.5, cycles=3000, warmup=1000,
                      lookahead=6, mode="ugal_l", seed=0)
+# Phase 9: the 5%-failed q=19 fabric's open loop
+DEGRADED_CFG = dict(injection_rate=0.3, cycles=1000, warmup=250, lookahead=6,
+                    mode="ugal_g", seed=0)
 WORSTCASE_CFG = dict(injection_rate=0.2, cycles=1500, warmup=500,
                      lookahead=6, mode="ugal_l", seed=0)
 UNREACH, BIG_I = 1 << 14, 1 << 30
@@ -420,7 +464,14 @@ PEAK_F32_OPS_S = 67e12
 SMS, FP32_LANES = 132, 128
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (t_s)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1939,6 +1990,523 @@ def jobs_phases(dev, ctx: dict) -> dict:
     return {"launches": launches}
 
 
+# Phase 29: the telemetry settings of this slice's main path (Fig 6a's
+# q=19 UGAL-L open loop at 0.5, OPEN_LOOP_CFG): counters, then counters
+# and a trace ring sampling 1/256 of the flows
+TEL_COUNTERS = dict(counters=True)
+TEL_TRACE = dict(counters=True, trace=True, trace_sample_shift=8,
+                 trace_capacity=65536)
+# Phase 30: Fig 6a's q=19 sweep settings with the depth cut to 1000 cycles
+TEL_SWEEP_CFG = dict(OPEN_LOOP_CFG, cycles=1000, warmup=250)
+# Aten operations dispatched per cycle by the telemetry-off q=19 loops
+# (`dispatch_per_cycle`: the open loop of OPEN_LOOP_CFG, the closed loop
+# of phase 4's stencil under MIN, chunk 32) on the tree before telemetry
+# was ported, measured on the card with the same count
+# (`tools/count_loop_ops.py build/parent`, NVIDIA H100 80GB HBM3, 700.00
+# W; equal on the ported tree in the same call).  The telemetry-off loops
+# must dispatch exactly these.  The profiler's count of device operations
+# is reported beside them but not held: it drops events in some runs, so
+# two runs of one tree can differ (PERF.md section 5).
+OFF_DISPATCH_OPEN, OFF_DISPATCH_CLOSED = 291.0, 300.34375
+
+
+def counters_equal(a, b) -> bool:
+    """Two CountersSnapshots equal field for field."""
+    import numpy as np
+    return all(np.array_equal(v, getattr(b, f)) for f, v in vars(a).items())
+
+
+def tel_snapshots_equal(a, b) -> bool:
+    """Two TelemetrySnapshots equal: counters field for field, events
+    element for element, drops."""
+    import numpy as np
+    if (a.counters is None) != (b.counters is None):
+        return False
+    if a.counters is not None and not counters_equal(a.counters, b.counters):
+        return False
+    if (a.events is None) != (b.events is None):
+        return False
+    return (a.events is None or np.array_equal(a.events, b.events)) and \
+        a.events_dropped == b.events_dropped and a.cycles == b.cycles
+
+
+def core_equal(a, b) -> bool:
+    """Every field of two results but `telemetry` equal."""
+    import numpy as np
+    return all(np.array_equal(v, getattr(b, f)) for f, v in vars(a).items()
+               if f != "telemetry")
+
+
+def conserved(r) -> bool:
+    """The drained-run identities of the counters (tests/test_telemetry.py
+    `_conserve`): ejections == flits delivered, channel forwards == hops
+    of the delivered flits, grants == forwards + ejections, route
+    choices == flits injected."""
+    cs = r.telemetry.counters
+    chan, ej = int(cs.chan_flits.sum()), int(cs.ej_count.sum())
+    return (ej == r.flits_delivered and chan == int(cs.ej_hops_sum.sum())
+            and int(cs.alloc_grant.sum()) == chan + ej
+            and int(cs.route_min.sum() + cs.route_val.sum())
+            == r.flits_delivered)
+
+
+def dispatch_per_cycle(run_upto, lo: int = 32, hi: int = 96) -> float:
+    """Aten operations `run_upto(n)` dispatches per cycle, the difference
+    of an n = lo and an n = hi run (set-up cancels): exact, where the
+    profiler's count of device operations can drop events."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+    got = {}
+    for m in (lo, hi):
+        with Count() as c:
+            run_upto(m)
+        torch.cuda.synchronize()
+        got[m] = c.n
+    return (got[hi] - got[lo]) / (hi - lo)
+
+
+def telemetry_phases(dev, ctx: dict) -> dict:
+    """Phases 29-30: telemetry on this slice's main path at q=19, its
+    lanes, and kernel path against plain path at q=7.  `ctx` holds what
+    earlier phases built.  Returns the kernels line's "telemetry"
+    entries (phase 29's launches)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import build_slimfly
+    from repro_torch.core.topologies import build_fattree3
+    from repro_torch.sim import (SimConfig, SimTables, make_traffic, simulate,
+                                 sweep_simulate)
+    from repro_torch.sim.telemetry import TelemetryConfig, export
+    from repro_torch.sim.workloads import (WorkloadSimConfig, ring_all_reduce,
+                                           run_workload)
+
+    card = ctx["card"]
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    tel = {"off": TelemetryConfig(), "counters": TelemetryConfig(**TEL_COUNTERS),
+           "trace": TelemetryConfig(**TEL_TRACE)}
+
+    # ---- 29. the main path of this slice: q=19 built from scratch, Fig
+    # 6a's UGAL-L open loop at 0.5 with counters, then counters and trace;
+    # run 1 (telemetry off) is phase 5's run of the same configuration
+    t_phase = time.perf_counter()
+    ro = ctx["ro"]
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tab = SimTables.build(build_slimfly(19))
+    uni = make_traffic(tab, "uniform")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launches = {"build": kernels.launch_counts()}
+    runs, walls = {}, {}
+    for tag in ("counters", "trace"):
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        runs[tag] = simulate(tab, uni, SimConfig(**OPEN_LOOP_CFG,
+                                                 telemetry=tel[tag]))
+        torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t0
+        after = kernels.launch_counts()
+        launches[tag] = {k: after[k] - before[k] for k in after}
+    peak = torch.cuda.max_memory_allocated()
+    n = OPEN_LOOP_CFG["cycles"]
+    cs = runs["counters"].telemetry.counters
+    snap = runs["trace"].telemetry
+    spans = snap.spans()
+    complete = sum(sp["start"] is not None and sp["end"] is not None
+                   for sp in spans)
+    # the degraded fabric of phase 9 with counters: dead channels forward
+    # nothing, and the run equals phase 9's
+    rd = ctx["rd"]
+    t0 = time.perf_counter()
+    rdc = simulate(ctx["tab_d"], make_traffic(ctx["tab_d"], "uniform"),
+                   SimConfig(**DEGRADED_CFG, telemetry=tel["counters"]))
+    deg_s = time.perf_counter() - t0
+    csd = rdc.telemetry.counters
+    dead = ctx["tab_d"].nbr < 0
+    # the q=19 stencil of phase 4 under MIN, counters and trace on
+    t0 = time.perf_counter()
+    rs = run_workload(ctx["tables"], ctx["wl"],
+                      WorkloadSimConfig(telemetry=tel["trace"]))
+    torch.cuda.synchronize()
+    stencil_s = time.perf_counter() - t0
+    stencil = dict(makespan=rs.makespan, flits=rs.flits_delivered,
+                   done_sum=int(rs.msg_done.sum()),
+                   start_sum=int(rs.msg_start.sum()))
+    # what export writes: the heatmap of the counters run, the perfetto
+    # trace of the traced run
+    t0 = time.perf_counter()
+    heat = os.path.join(out_dir, "telemetry_q19_channel_load.json")
+    trace_path = os.path.join(out_dir, "telemetry_q19_trace.json")
+    export.write_channel_heatmap(heat, [runs["counters"].telemetry],
+                                 lane_labels=["q19 ugal_l 0.5"])
+    tdoc = export.write_chrome_trace(
+        trace_path, snap, per_cycle_counter=runs["trace"].per_cycle_delivered)
+    export_s = time.perf_counter() - t0
+
+    # device operations, busy ms and wall per cycle of the open loop with
+    # telemetry off, counters, and counters and trace: the difference of
+    # two profiled runs (32 and 96 cycles), as phase 25 measures them; and
+    # the aten operations the telemetry-off open and closed loops
+    # dispatch per cycle
+    def open_upto(t):
+        return lambda m: simulate(tab, uni, SimConfig(**dict(
+            OPEN_LOOP_CFG, cycles=m, warmup=0), telemetry=tel[t]))
+
+    def closed_upto(t):
+        return lambda m: run_workload(ctx["tables"], ctx["wl"],
+                                      WorkloadSimConfig(
+                                          chunk=32, max_cycles=m,
+                                          telemetry=tel[t]))
+    prof = {t: ops_per_cycle(open_upto(t)) for t in tel}
+    dispatch = {"open": dispatch_per_cycle(open_upto("off")),
+                "closed": dispatch_per_cycle(closed_upto("off"))}
+    emit({"phase": "telemetry", "card": card, "q": 19,
+          "routers": tab.n_routers, "endpoints": tab.n_endpoints,
+          **OPEN_LOOP_CFG, "mode_settings": {"counters": TEL_COUNTERS,
+                                             "trace": TEL_TRACE},
+          "equal_to_telemetry_off": {t: core_equal(runs[t], ro)
+                                     for t in runs},
+          "counters_equal_between_runs": counters_equal(cs, snap.counters),
+          "grants": int(cs.alloc_grant.sum()),
+          "channel_flits": int(cs.chan_flits.sum()),
+          "ejections": int(cs.ej_count.sum()), "delivered": ro.delivered,
+          "max_channel_flits": int(cs.chan_flits.max()),
+          "route_min_val": [int(cs.route_min.sum()), int(cs.route_val.sum())],
+          "deny_rate": float(cs.alloc_deny.sum()
+                             / max(int((cs.alloc_grant
+                                        + cs.alloc_deny).sum()), 1)),
+          "events_kept": len(snap.events), "events_dropped":
+          snap.events_dropped, "spans": len(spans),
+          "complete_spans": complete,
+          "degraded": dict(equal_to_phase9=core_equal(rdc, rd),
+                           dead_channels=int(dead.sum()),
+                           dead_channel_flits=int(csd.chan_flits[dead].sum()),
+                           max_channel_flits=int(csd.chan_flits.max()),
+                           cycles=int(csd.cycles), wall_s=deg_s),
+          "stencil": dict(stencil, conserved=conserved(rs),
+                          events_kept=len(rs.telemetry.events),
+                          wall_s=stencil_s,
+                          cycles_per_s=rs.cycles_run / stencil_s),
+          "build_tables_s": build_s, "wall_s_runs": walls,
+          "wall_ms_per_cycle": {"off_phase5": 1e3 / ctx["open_cycles_per_s"],
+                                **{t: 1e3 * walls[t] / n for t in walls}},
+          "profile_open": prof,
+          "dispatch_per_cycle_off": dispatch,
+          "parent_dispatch_per_cycle": {"open": OFF_DISPATCH_OPEN,
+                                        "closed": OFF_DISPATCH_CLOSED},
+          "export": dict(heatmap_bytes=os.path.getsize(heat),
+                         trace_bytes=os.path.getsize(trace_path),
+                         trace_events=len(tdoc["traceEvents"]),
+                         export_s=export_s),
+          "max_memory_allocated": peak, "launches": launches,
+          "wall_s": time.perf_counter() - t_phase})
+    for t in runs:
+        assert core_equal(runs[t], ro), f"telemetry {t} changed the run"
+    assert counters_equal(cs, snap.counters)
+    assert int(cs.alloc_grant.sum()) == (int(cs.chan_flits.sum())
+                                         + int(cs.ej_count.sum()))
+    assert int(cs.chan_flits.max()) <= n
+    assert core_equal(rdc, rd), "counters changed the degraded run"
+    assert int(dead.sum()) > 0 and int(csd.chan_flits[dead].sum()) == 0
+    assert int(csd.chan_flits.max()) <= int(csd.cycles)
+    assert len(snap.events) > 0 and len(spans) > 0
+    assert stencil == GOLDEN_Q19, (stencil, GOLDEN_Q19)
+    assert rs.completed and conserved(rs)
+    assert dispatch == {"open": OFF_DISPATCH_OPEN,
+                        "closed": OFF_DISPATCH_CLOSED}, dispatch
+    assert launches["build"]["minplus"] == MINPLUS_PER_BUILD, launches
+    for t in runs:
+        assert launches[t]["alloc_rounds"] == n, launches
+        assert launches[t]["ugal_route"] == n, launches
+        assert launches[t]["ugal_select"] == 0, launches
+
+    # ---- 30. lanes: Fig 6a's five-lane q=19 sweep with counters, its
+    # depth cut to TEL_SWEEP_CFG's 1000 cycles, each lane's counters
+    # against its sequential run's; then kernel path against plain path
+    # at q=7
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    res = sweep_simulate(tab, uni, SimConfig(**TEL_SWEEP_CFG,
+                                             telemetry=tel["counters"]),
+                         rates=SWEEP_RATES)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    launches_sweep = kernels.launch_counts()
+    seq = {rate: simulate(tab, uni, SimConfig(**dict(
+        TEL_SWEEP_CFG, injection_rate=rate), telemetry=tel["counters"]))
+        for rate in SWEEP_RATES}
+    lanes_equal = [tel_snapshots_equal(r.telemetry, seq[rt].telemetry)
+                   and core_equal(r, seq[rt])
+                   for rt, r in zip(SWEEP_RATES, res)]
+    lanes_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    tab7 = ctx["tab7"]
+    ft4 = SimTables.build(build_fattree3(p=4), ecmp=True)
+    tel7 = TelemetryConfig(counters=True, trace=True, trace_sample_shift=1,
+                           trace_capacity=1 << 14)
+    checked = []
+    for mode, t in (("min", tab7), ("ugal_l", tab7), ("ugal_g", tab7),
+                    ("ecmp", ft4)):
+        tr = make_traffic(t, "uniform")
+        cfg = dict(injection_rate=0.5, cycles=150, warmup=50, mode=mode,
+                   seed=7, telemetry=tel7)
+        rk, rr = (simulate(t, tr, SimConfig(kernel_path=p, **cfg))
+                  for p in ("cuda", "ref"))
+        assert core_equal(rk, rr) and tel_snapshots_equal(
+            rk.telemetry, rr.telemetry), mode
+        assert len(rk.telemetry.events) > 0
+        checked.append(f"open/{mode}")
+    wk, wr = (run_workload(tab7, ctx["wl7"], WorkloadSimConfig(
+        mode="ugal_l", seed=3, kernel_path=p, telemetry=tel7))
+        for p in ("cuda", "ref"))
+    assert wk.completed and core_equal(wk, wr)
+    assert tel_snapshots_equal(wk.telemetry, wr.telemetry) and conserved(wk)
+    checked.append("closed/ugal_l")
+    emit({"phase": "telemetry_lanes", "card": card, "q": 19,
+          "rates": SWEEP_RATES, **TEL_SWEEP_CFG,
+          "lanes_equal_sequential": lanes_equal,
+          "sweep_s": sweep_s, "sweep_lane_cycles_per_s":
+          len(SWEEP_RATES) * TEL_SWEEP_CFG["cycles"] / sweep_s,
+          "lanes_and_sequential_s": lanes_s,
+          "launches_sweep": launches_sweep,
+          "paths_equal_q7": checked, "paths_equal_s":
+          time.perf_counter() - t0})
+    assert all(lanes_equal), lanes_equal
+    assert launches_sweep["alloc_rounds"] == TEL_SWEEP_CFG["cycles"]
+    assert launches_sweep["ugal_route"] == TEL_SWEEP_CFG["cycles"]
+    return {"launches": launches}
+
+
+# Phase 31: routed_resilience_sweep at full width (name, builder in
+# repro_torch.core or repro_torch.core.topologies, its arguments), with the
+# reference's default fractions 0.05-0.50, 10 samples, seed 7
+RESILIENCY_FABRICS = [("sf_q19", "build_slimfly", dict(q=19)),
+                      ("df_h7", "build_dragonfly", dict(h=7)),
+                      ("ft3_p22", "build_fattree3", dict(p=22))]
+RES_SAMPLES, RES_SEED = 10, 7
+# Reference value of phase 31's q=7 sweep, computed with the JAX package
+# on the CPU (jax 0.9.0; its plain jnp min-plus path):
+#   JAX_PLATFORMS=cpu PYTHONPATH=src python -c "
+#   from repro.core import build_slimfly
+#   from repro.core.resiliency import routed_resilience_sweep
+#   print(routed_resilience_sweep(build_slimfly(7), n_samples=10, seed=7,
+#                                 use_pallas=False))"
+# The distances are exact integers on both packages; the floats are numpy
+# means and ratios of them on the host, held within ROUTED_RTOL relative.
+GOLDEN_ROUTED_Q7 = {
+    0.05: (1.0, 1.0, 1.0443298969072166, 4.0),
+    0.1: (1.0, 1.0, 1.0898485167262781, 4.0),
+    0.15: (1.0, 1.0, 1.1356616873553544, 4.0),
+    0.2: (1.0, 1.0, 1.181390700610141, 4.0),
+    0.25: (1.0, 1.0, 1.2299495055754261, 4.0),
+    0.3: (1.0, 1.0, 1.2764359351988217, 4.0),
+    0.35: (1.0, 1.0, 1.3244687565747948, 4.0),
+    0.4: (1.0, 1.0, 1.3830002103934358, 4.0),
+    0.45: (1.0, 1.0, 1.4437092362718282, 5.0),
+    0.5: (1.0, 1.0, 1.5246686303387333, 6.0)}
+ROUTED_KEYS = ("reroute_success", "survival", "mean_stretch", "max_stretch")
+ROUTED_RTOL = 1e-12
+# Phase 32: the rows of the reference's drivers (benchmarks/
+# table3_resiliency.py, which reads no smoke setting, in fast mode;
+# benchmarks/faults_sweep.py with REPRO_SMOKE=1), computed on the CPU:
+#   JAX_PLATFORMS=cpu PYTHONPATH=src:. REPRO_SMOKE=1 python -c "
+#   import benchmarks.table3_resiliency as t, benchmarks.faults_sweep as f
+#   print(t.run(fast=True)); print(f.run(fast=True))"
+# Both are exact (graph BFS; MIN routing draws nothing); the telemetry
+# driver's rows carry times and UGAL-L draws, so only its names are held.
+TABLE3_SMOKE_ROWS = [
+    {"name": "table3/disconnect/sf-q7", "N": 588, "derived": 0.6},
+    {"name": "table3/disconnect/df-h3", "N": 342, "derived": 0.5},
+    {"name": "table3/disconnect/t3d-5", "N": 125, "derived": 0.45},
+    {"name": "table3/disconnect/hc-7", "N": 128, "derived": 0.5}]
+FAULTS_SMOKE_ROWS = [
+    {"name": "faults_sweep/routed/sf-q5/f5", "derived": 1.0,
+     "stretch": 1.057, "max_stretch": 4.0, "survival": 1.0},
+    {"name": "faults_sweep/routed/sf-q5/f10", "derived": 1.0,
+     "stretch": 1.122, "max_stretch": 4.0, "survival": 1.0},
+    {"name": "faults_sweep/load_inflation/sf-q5", "derived": 1.223,
+     "max_inflation": 2.692, "connected": True},
+    {"name": "faults_sweep/jct/sf-q5/ring_all_reduce(k=8,c=2)/min",
+     "derived": 1.0, "healthy": 32.0, "degraded": 32.0, "completed": True}]
+TELEMETRY_SMOKE_ROWS = ["telemetry/heatmap_q5", "telemetry/trace_ring",
+                        "telemetry/lowering_telemetry_off",
+                        "telemetry/lowering_counters",
+                        "telemetry/lowering_counters_trace"]
+
+
+def fraction_batch(topo, f: float):
+    """The stacked masked adjacencies `routed_resilience_sweep` draws for
+    fraction `f` (its generator: seed RES_SEED + int(f * 1000))."""
+    import numpy as np
+    from repro_torch.core.resiliency import failure_edge_sample
+    from repro_torch.core.topology import masked_adjacency
+    rng = np.random.default_rng(RES_SEED + int(f * 1000))
+    masks = [failure_edge_sample(topo, f, rng) for _ in range(RES_SAMPLES)]
+    return np.stack([masked_adjacency(topo.adj, fe) for fe in masks])
+
+
+def batched_minplus_times(adjs, dev, sm_max_mhz: float) -> dict:
+    """One batched squaring of the seeded distances of `adjs` [B, n, n]:
+    kernel and plain times beside the bounds (phase 3's: operations at
+    the float32 peak, bytes at the HBM rate, and the two-slot bound at the
+    card's max SM clock)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.minplus import minplus_cuda, minplus_ref
+    d = ops.seed_distance(adjs, dev)
+    B, n = d.shape[0], d.shape[-1]
+    ms = time_ms(lambda: minplus_cuda(d, d), iters=20)
+    plain_ms = time_ms(lambda: minplus_ref(d, d), iters=2, warmup=1)
+    n_ops, n_bytes = 2 * B * n ** 3, 4 * 3 * B * n * n
+    bound_ms = 1e3 * max(n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_OPS_S)
+    slot_ms = 1e3 * n_ops / (SMS * FP32_LANES * sm_max_mhz * 1e6)
+    return dict(shape=[B, n, n, n], ms=ms, ms_per_sample=ms / B,
+                plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=("operations" if n_ops / PEAK_F32_OPS_S
+                          >= n_bytes / PEAK_BYTES_S else "bytes"),
+                slot_bound_ms_at_max_clock=slot_ms,
+                slot_bound_share=slot_ms / ms)
+
+
+def resiliency_phases(dev, ctx: dict) -> dict:
+    """Phases 31-32: the routed resiliency sweeps at full width with the
+    batched min-plus kernel, and the resiliency and telemetry drivers.
+    Returns the kernels line's "resiliency" entries."""
+    import math
+
+    import numpy as np
+    import torch
+    import repro_torch.core as core
+    import repro_torch.core.topologies as topologies
+    from repro_torch import kernels
+    from repro_torch.bench import faults_sweep, table3_resiliency
+    from repro_torch.bench import telemetry_export
+    from repro_torch.core.resiliency import (metric_after_failures,
+                                             routed_resilience_sweep)
+    from repro_torch.kernels import ops
+
+    card, sm_max_mhz = ctx["card"], ctx["sm_max_mhz"]
+    out_dir = os.path.join(ROOT, "chiprun_out")
+
+    # ---- 31. routed Table III on the three fabrics: each fraction's ten
+    # samples in one stacked APSP (one batched min-plus launch per
+    # squaring); each batch again, kernel against plain
+    t_phase = time.perf_counter()
+    fractions = np.arange(0.05, 0.55, 0.05)
+    per, launches, times = {}, {}, {}
+    for name, fn, kw in RESILIENCY_FABRICS:
+        topo = getattr(core if hasattr(core, fn) else topologies, fn)(**kw)
+        n = topo.n_routers
+        torch.cuda.synchronize()
+        at_start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        sweep = routed_resilience_sweep(topo, n_samples=RES_SAMPLES,
+                                        seed=RES_SEED)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        launches[name] = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        err = 0.0
+        for f in fractions:
+            adjs = fraction_batch(topo, float(f))
+            err = max(err, exact_diff(
+                ops.apsp(adjs, device=dev, max_diameter=n,
+                         kernel_path="cuda"),
+                ops.apsp(adjs, device=dev, max_diameter=n,
+                         kernel_path="ref")))
+        check_s = time.perf_counter() - t0
+        times[name] = batched_minplus_times(fraction_batch(topo, 0.05), dev,
+                                            sm_max_mhz)
+        squarings = math.ceil(math.log2(n))
+        per[name] = dict(
+            routers=n, links=len(topo.edge_list()), samples=RES_SAMPLES,
+            squarings_per_fraction=squarings, sweep_s=sweep_s,
+            kernel_vs_plain_s=check_s, max_abs_err=err,
+            max_memory_allocated=peak, peak_above_start=peak - at_start,
+            launches=launches[name],
+            points={str(k): v for k, v in sweep.items()})
+        assert err == 0.0, (name, err)
+        assert sorted(sweep) == [round(float(f), 2) for f in fractions]
+        assert launches[name]["minplus"] == (MINPLUS_PER_BUILD
+                                             + len(fractions) * squarings)
+        assert launches[name]["alloc_rounds"] == 0
+
+    # the graph metrics' kernel engine against the scipy engine at q=19
+    topo19 = core.build_slimfly(19)
+    engines = {}
+    for metric in ("disconnect", "diameter"):
+        got = {}
+        for engine in ("scipy", "kernel"):
+            t0 = time.perf_counter()
+            got[engine] = metric_after_failures(topo19, 0.3, metric,
+                                                n_samples=RES_SAMPLES,
+                                                seed=42, engine=engine)
+            got[engine + "_s"] = time.perf_counter() - t0
+        engines[metric] = got
+    # the q=7 sweep against the reference's value
+    sweep7 = routed_resilience_sweep(core.build_slimfly(7),
+                                     n_samples=RES_SAMPLES, seed=RES_SEED)
+    rel7 = max(abs(sweep7[f][k] - g) / g for f, gs in GOLDEN_ROUTED_Q7.items()
+               for k, g in zip(ROUTED_KEYS, gs))
+    emit({"phase": "resiliency", "card": card,
+          "fractions": [round(float(f), 2) for f in fractions],
+          "fabrics": per, "batched_squaring": times,
+          "metric_engines_q19_f0.3": engines,
+          "q7_equals_reference": sorted(sweep7) == sorted(GOLDEN_ROUTED_Q7),
+          "q7_max_rel_diff": rel7, "q7_rtol": ROUTED_RTOL,
+          "wall_s": time.perf_counter() - t_phase})
+    for metric, got in engines.items():
+        assert got["scipy"] == got["kernel"], (metric, got)
+    assert sorted(sweep7) == sorted(GOLDEN_ROUTED_Q7)
+    assert rel7 <= ROUTED_RTOL, rel7
+
+    # ---- 32. the resiliency and telemetry drivers in smoke mode
+    t0 = time.perf_counter()
+    walls = {}
+    t3_rows, _ = table3_resiliency.run("smoke", out=os.path.join(
+        out_dir, "table3_resiliency_torch_smoke.json"))
+    walls["table3_resiliency"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    fs_rows, _ = faults_sweep.run("smoke", out=os.path.join(
+        out_dir, "faults_sweep_torch_smoke.json"))
+    walls["faults_sweep"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    te_rows, te_entries, te_paths = telemetry_export.run("smoke",
+                                                         out_dir=out_dir)
+    walls["telemetry_export"] = time.perf_counter() - t1
+    emit({"phase": "resiliency_drivers", "card": card, "mode": "smoke",
+          "table3_rows": t3_rows, "faults_rows": fs_rows,
+          "telemetry_rows": te_rows,
+          "telemetry_runs": [dict(name=e.name, wall_s=e.wall_s,
+                                  cycles_per_s=e.cycles_per_sec)
+                             for e in te_entries],
+          "artifacts": {k: os.path.getsize(v) for k, v in te_paths.items()},
+          "table3_equals_reference": t3_rows == TABLE3_SMOKE_ROWS,
+          "faults_equal_reference": fs_rows == FAULTS_SMOKE_ROWS,
+          "telemetry_names_equal_reference":
+          [r["name"] for r in te_rows] == TELEMETRY_SMOKE_ROWS,
+          "wall_s": walls, "total_s": time.perf_counter() - t0})
+    assert t3_rows == TABLE3_SMOKE_ROWS, t3_rows
+    assert fs_rows == FAULTS_SMOKE_ROWS, fs_rows
+    assert [r["name"] for r in te_rows] == TELEMETRY_SMOKE_ROWS
+    return {"launches": launches, "times": times}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2311,9 +2879,8 @@ def main() -> int:
     # in phase 8)
     live = tab_d.dist < UNREACH
     t0 = time.perf_counter()
-    rd = simulate(tab_d, make_traffic(tab_d, "uniform"), SimConfig(
-        injection_rate=0.3, cycles=1000, warmup=250, lookahead=6,
-        mode="ugal_g", seed=0))
+    rd = simulate(tab_d, make_traffic(tab_d, "uniform"),
+                  SimConfig(**DEGRADED_CFG))
     d_s = time.perf_counter() - t0
     emit({"phase": "degraded", "q": 19, "failed_links": len(fe19),
           "links": len(tab_o.topo.edge_list()),
@@ -2392,6 +2959,26 @@ def main() -> int:
         ro=ro, open_cycles_per_s=open_cps, tab_d=tab_d, tab_s=tab_s,
         tables=tables, wl=wl, tab7=tab7, tab7m=tab7m, tab7s=tab7s, wl7=wl7))
     jobs = jobs_phases(dev, dict(tab7=tab7))             # phases 25-28
+    tel = telemetry_phases(dev, dict(                    # phases 29-30
+        card=smi_line, ro=ro, open_cycles_per_s=open_cps, tab_d=tab_d, rd=rd,
+        tables=tables, wl=wl, tab7=tab7, wl7=wl7))
+    resil = resiliency_phases(dev, dict(                 # phases 31-32
+        card=smi_line, sm_max_mhz=sm_max_mhz))
+
+    def tel_entry(kernel: str) -> dict:
+        # the kernel's launches in phase 29: the q=19 tables' build, the
+        # counters run and the counters-and-trace run
+        return {"launches": {run: n[kernel]
+                             for run, n in tel["launches"].items()}}
+
+    def res_entry(kernel: str) -> dict:
+        # the kernel's launches in each phase-31 sweep; min-plus also its
+        # batched squaring's times at the sweeps' [10, n, n] shapes
+        out = {"launches": {fab: n[kernel]
+                            for fab, n in resil["launches"].items()}}
+        if kernel == "minplus":
+            out["batched_squaring"] = resil["times"]
+        return out
 
     def jobs_entry(kernel: str) -> dict:
         # the kernel's launches in phase 25: the routing build, the MIN
@@ -2424,7 +3011,8 @@ def main() -> int:
              launches=launches_open["minplus"],
              launches_closed_loop=launches["minplus"], bound_by="operations",
              library_ms=None, fig6=fig6_entry("minplus", "minplus"),
-             jobs=jobs_entry("minplus"), **report["minplus"]),
+             jobs=jobs_entry("minplus"), telemetry=tel_entry("minplus"),
+             resiliency=res_entry("minplus"), **report["minplus"]),
         dict(name="alloc_rounds", route="cuda", source=src + "alloc.cu",
              replaces="src/repro/kernels/alloc.py:77",
              launches=launches_open["alloc_rounds"],
@@ -2432,14 +3020,17 @@ def main() -> int:
              library_ms=None,
              fig6=fig6_entry("alloc_rounds", "alloc_rounds"),
              sweep=sweep_entry("alloc_rounds", "alloc_rounds"),
-             jobs=jobs_entry("alloc_rounds"), **report["alloc_rounds"]),
+             jobs=jobs_entry("alloc_rounds"),
+             telemetry=tel_entry("alloc_rounds"),
+             resiliency=res_entry("alloc_rounds"), **report["alloc_rounds"]),
         dict(name="ugal_select", route="cuda", source=src + "ugal.cu",
              replaces="src/repro/kernels/alloc.py:170",
              launches=launches_open["ugal_route"],
              launches_closed_loop=launches["ugal_route"], bound_by="bytes",
              library_ms=None, fig6=fig6_entry("ugal_route", "ugal_select"),
              sweep=sweep_entry("ugal_route", "ugal_select"),
-             jobs=jobs_entry("ugal_route"), **report["ugal_select"]),
+             jobs=jobs_entry("ugal_route"), telemetry=tel_entry("ugal_route"),
+             resiliency=res_entry("ugal_route"), **report["ugal_select"]),
         dict(name="decode_attention", route="cuda",
              source=src + "attn_decode.cu",
              replaces="src/repro/kernels/attn_decode.py:81",

@@ -10,4 +10,10 @@
                  (``python -m repro_torch.bench.multitenant``)
 - collective_search: the schedule search over collective policies
                  (``python -m repro_torch.bench.collective_search``)
+- table3_resiliency: Table III's graph resiliency
+                 (``python -m repro_torch.bench.table3_resiliency``)
+- faults_sweep:  routed resiliency over failure samples and degraded JCT
+                 (``python -m repro_torch.bench.faults_sweep``)
+- telemetry_export: channel heatmap, perfetto trace and the telemetry's
+                 cost (``python -m repro_torch.bench.telemetry_export``)
 """

@@ -1,6 +1,6 @@
 """Slim Fly core, ported: the MMS graph over GF(q), the topology
-abstraction, the rack layout and MIN routing (APSP by (min,+) squaring
-on the device)."""
+abstraction, the rack layout, MIN routing (APSP by (min,+) squaring on
+the device) and the link-failure analyses (`resiliency`, §III-D)."""
 
 from .gf import GF, factor_prime_power, is_prime
 from .layout import Layout, make_layout

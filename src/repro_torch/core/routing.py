@@ -11,8 +11,11 @@ disconnects get ``dist = UNREACH`` and ``next_hop = -1``.  With
 (`RoutingTables.next_hops_all`, the ECMP sets), built one router at a
 time in numpy.  `valiant_path`, `assign_vcs`, the channel-dependency
 graph and its deadlock check (`is_deadlock_free`, Kahn's sort) are
-numpy copies of the reference's.  Channel loads and the routed
-resiliency metrics are not part of the port yet (ROADMAP Queue 1 #10).
+numpy copies of the reference's, and so are the uniform MIN channel
+load (`channel_load_uniform`, its float64 sums in the reference's
+order) and the routed resiliency metrics of a failure mask
+(`routed_resiliency_metrics`: reroute success, stretch and load
+inflation of MIN re-converged on the masked fabric).
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ from .topology import Topology, masked_adjacency, normalize_failed_edges
 
 __all__ = ["UNREACH", "EqualCostSets", "RoutingTables", "build_routing",
            "equal_cost_next_hops", "valiant_path", "assign_vcs",
-           "channel_dependency_graph", "is_deadlock_free"]
+           "channel_dependency_graph", "is_deadlock_free",
+           "channel_load_uniform", "analytic_channel_load", "RoutedMetrics",
+           "routed_resiliency_metrics"]
 
 # Hop-distance sentinel for pairs disconnected by link failures (int16,
 # and the int32 sum of two stays far from overflow), as in the reference.
@@ -237,3 +242,96 @@ def is_deadlock_free(paths: Sequence[Sequence[int]], n_routers: int,
             if indeg[w] == 0:
                 stack.append(w)
     return seen == n
+
+
+def channel_load_uniform(rt: RoutingTables, p: Optional[int] = None
+                         ) -> Tuple[float, float]:
+    """Empirical (avg, max) channel load under all-to-all uniform traffic
+    with deterministic MIN routing (§II-B2).  Load = number of routes using
+    each directed channel, normalised by p^2 endpoint pairs per router pair.
+    Returns loads in units of routes per channel for p endpoints/router."""
+    topo = rt.topo
+    n = topo.n_routers
+    p = p if p is not None else topo.p
+    adj = rt.adj                     # live adjacency (mask-aware)
+    load = np.zeros((n, n), dtype=np.float64)
+    # D <= 2 fast path: direct edges get 1, two-hop routes via next_hop
+    for s in range(n):
+        t_direct = np.nonzero(adj[s])[0]
+        load[s, t_direct] += 1.0
+        t_two = np.nonzero(rt.dist[s] == 2)[0]
+        mids = rt.next_hop[s, t_two]
+        np.add.at(load, (np.full_like(mids, s), mids), 1.0)
+        np.add.at(load, (mids, t_two), 1.0)
+        # distances > 2: walk (generic topologies); unreachable pairs
+        # (failure mask) simply contribute no routes
+        t_far = np.nonzero((rt.dist[s] > 2) & (rt.dist[s] < UNREACH))[0]
+        for t in t_far:
+            path = rt.min_path(s, int(t))
+            for u, v in zip(path[:-1], path[1:]):
+                load[u, v] += 1.0
+    chan = load[adj]                 # only live physical channels
+    scale = p * p                    # p^2 endpoint pairs per router pair
+    return float(chan.mean() * scale), float(chan.max() * scale)
+
+
+def analytic_channel_load(kprime: int, n_r: int, p: int) -> float:
+    """Paper's closed form: l = (2 N_r - k' - 2) p^2 / k'."""
+    return (2 * n_r - kprime - 2) * p * p / kprime
+
+
+@dataclasses.dataclass(frozen=True)
+class RoutedMetrics:
+    """Routed view of §III-D: what MIN routing delivers on a degraded
+    fabric (cf. Blach et al. 2023's operational resiliency criteria)."""
+    n_failed: int                   # undirected links removed
+    connected: bool                 # every router pair still reachable
+    reroute_success: float          # reachable fraction of ordered s != d pairs
+    mean_stretch: float             # mean dist_failed / dist_healthy (reachable)
+    max_stretch: float
+    load_inflation: float           # mean live-channel load / healthy mean
+    max_load_inflation: float       # max live-channel load / healthy max
+
+
+def routed_resiliency_metrics(topo: Topology, failed_edges,
+                              base_rt: Optional[RoutingTables] = None,
+                              device=None,
+                              kernel_path: str = "auto") -> RoutedMetrics:
+    """Reroute success / path stretch / channel-load inflation of MIN
+    routing re-converged on the masked adjacency, vs the healthy tables
+    (`base_rt`, built here when not given).  The routing builds run on
+    `device` (default ``cuda``) through `kernel_path`, as
+    `build_routing`'s.
+
+    A zero-length mask reproduces the healthy numbers exactly
+    (stretch = inflation = 1, success = 1)."""
+    fe = normalize_failed_edges(failed_edges, topo)
+    base_rt = base_rt or build_routing(topo, device=device,
+                                       kernel_path=kernel_path)
+    rt = build_routing(topo, device=device, kernel_path=kernel_path,
+                       failed_edges=fe)
+
+    n = topo.n_routers
+    off = ~np.eye(n, dtype=bool)
+    reach = rt.reachable & off
+    n_pairs = n * (n - 1)
+    success = float(reach.sum() / n_pairs)
+
+    if reach.any():
+        stretch = (rt.dist[reach].astype(np.float64)
+                   / np.maximum(base_rt.dist[reach], 1).astype(np.float64))
+        mean_stretch, max_stretch = float(stretch.mean()), float(stretch.max())
+    else:
+        mean_stretch = max_stretch = float("inf")
+
+    base_avg, base_max = channel_load_uniform(base_rt)
+    avg, mx = channel_load_uniform(rt)
+    return RoutedMetrics(
+        n_failed=len(fe),
+        connected=bool(reach.sum() == n_pairs),
+        reroute_success=success,
+        mean_stretch=mean_stretch,
+        max_stretch=max_stretch,
+        load_inflation=float(avg / base_avg),
+        max_load_inflation=float(mx / base_max),
+    )

@@ -46,7 +46,11 @@ choice, allocation, arrivals and compaction are unchanged.  The paths
 are one table shared by every lane, or one per lane (a schedule
 search's candidates), read at row l M + m.
 
-Not ported yet: telemetry (ROADMAP Queue 1 #9).
+Telemetry (`repro_torch.sim.telemetry`, opt-in through
+`SimConfig.telemetry`): counters and the trace ring are updated inside
+`alloc` and at the injection point, from values the step already holds;
+with it off the step issues exactly the operations it issues without
+the layer.
 
 Indexing.  jnp clamps an out-of-range gather index and wraps a negative
 one; torch raises on an index past the end and wraps a negative one.
@@ -74,12 +78,14 @@ from ..kernels.ref import bump_candidates
 from ..kernels._cuda import KERNEL_PATHS
 from .packed import (MAX_ROUTERS, PK, bump_hops_word, pack_record, pk_dst,
                      pk_hops, pk_inter, pk_msg, pk_phase, pk_time)
+from . import telemetry as tel
 from .random import LaneSources, TorchSource
 from .tables import SimTables
+from .telemetry import TelemetryConfig, TelemetrySnapshot
 from .traffic import Traffic
 
 __all__ = ["BIG", "OCC_CAP", "MODES", "SimConfig", "SimResult", "SwitchCore",
-           "simulate"]
+           "simulate", "TelemetryConfig"]
 
 BIG = 1 << 30
 # occupancy values entering UGAL scores are clamped here so that the
@@ -109,7 +115,9 @@ class SimConfig:
     # auto = the CUDA kernels for tensors on the card, their plain
     # versions on the CPU; ref / cuda force one (tests, chip_smoke.py)
     kernel_path: str = "auto"
-    telemetry: bool = False           # True: ROADMAP Queue 1 #9
+    # opt-in counters and tracing (repro_torch.sim.telemetry); the
+    # default is off and adds no operation to a cycle
+    telemetry: TelemetryConfig = TelemetryConfig()
 
 
 @dataclasses.dataclass
@@ -130,6 +138,7 @@ class SimResult:
     per_cycle_in_flight: np.ndarray
     per_cycle_dropped: np.ndarray
     q_src: int = 64
+    telemetry: Optional[TelemetrySnapshot] = None
 
     @property
     def saturated(self) -> bool:
@@ -174,6 +183,7 @@ class SwitchCore:
         self.mode = cfg.mode
         self.C = cfg.n_val_candidates
         self.kernel_path = cfg.kernel_path
+        self.tel = cfg.telemetry
 
         def on_dev(a, dtype):
             return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
@@ -220,6 +230,10 @@ class SwitchCore:
         self.sidx_net = torch.arange(self.Qn, dtype=I32, device=dev)
         self.sidx_src = torch.arange(self.Qs, dtype=I32, device=dev)
         self.vc_ids = torch.arange(V, dtype=I32, device=dev)
+        # the allocation rounds, for the counters' per-round grant/deny
+        # (built only with counters on: telemetry off adds no operation)
+        self.round_ids = (torch.arange(self.W, dtype=I32, device=dev)
+                          if cfg.telemetry.counters else None)
 
         # ---- constant row indices (host numpy, built once).  State rows:
         # router r of lane l is row l N + r of the lane-flattened queue
@@ -426,7 +440,8 @@ class SwitchCore:
 
     # -- allocation ----------------------------------------------------------
     def alloc(self, nq_pkt, nq_count, sq_pkt, sq_count, occ, cycle: int,
-              eject_fold: Callable, eject_acc, cycle_dev=None):
+              eject_fold: Callable, eject_acc, cycle_dev=None,
+              tel_state=None, trace_sample=None, trace_extra=None):
         """One cycle of W-round switch allocation + compaction for every
         lane, in place.
 
@@ -441,6 +456,14 @@ class SwitchCore:
         the reference's order.  `cycle_dev` (an int32 [1] tensor on the
         device holding `cycle`) is what the allocation kernel reads.
         Returns the four queue arrays and the folded accumulator.
+
+        When `tel_state` is passed (a `telemetry.TelemetryState`) it is
+        updated in place from this cycle's allocation outcome, reading
+        the cycle from `cycle_dev` (required then), and returned as a
+        sixth element;
+        `trace_sample` and `trace_extra` (the injections' mask and
+        records) carry the engine's sampler and injection events into
+        the trace ring.
         """
         L, N, P, V, Qn, Qs, W = (self.L, self.N, self.P, self.V, self.Qn,
                                  self.Qs, self.W)
@@ -538,6 +561,21 @@ class SwitchCore:
         pkt = torch.cat([pkt[..., :2], w2[..., None]], dim=-1)
         arrived = valid[..., None] & (self.vc_ids == vc[..., None])
 
+        # ---- telemetry (data only: nothing below reads it), before the
+        # dequeue so the counters see the cycle-start depths the kernel
+        # saw
+        if tel_state is not None:
+            if tel_state.counters is not None:
+                tel.counters.count_cycle(tel_state.counters, nq_count)
+                tel.counters.count_alloc(
+                    tel_state.counters, self, cycle_dev, rec_net, rec_src,
+                    win_req, cs_net, ej_net, cs_src, ej_src, cnt_net,
+                    sq_count)
+            if tel_state.trace is not None:
+                tel.trace.trace_alloc(
+                    tel_state.trace, self, cycle_dev, valid, pkt, rec_net,
+                    rec_src, ej_net, ej_src, trace_sample, trace_extra)
+
         # ---- dequeue + compaction, in place: removing the granted
         # packet at offset g is a shift of slots >= g by one; then the
         # arrival goes to the post-dequeue tail
@@ -562,7 +600,9 @@ class SwitchCore:
 
         nq_count += arrived.to(I32) - deq_net
         sq_count -= deq_src
-        return nq_pkt, nq_count, sq_pkt, sq_count, eject_acc
+        if tel_state is None:
+            return nq_pkt, nq_count, sq_pkt, sq_count, eject_acc
+        return nq_pkt, nq_count, sq_pkt, sq_count, eject_acc, tel_state
 
 
 # ---------------------------------------------------------------- open loop
@@ -608,7 +648,9 @@ def _fold_latency(lat_w: np.ndarray) -> np.ndarray:
 
 
 def _assemble_result(tables: SimTables, traffic: Traffic, cfg: SimConfig,
-                     n_active: int, stats: tuple) -> SimResult:
+                     n_active: int, stats: tuple,
+                     telemetry: Optional[TelemetrySnapshot] = None
+                     ) -> SimResult:
     """Host-side reduction of per-cycle stats into a SimResult (a copy
     of the reference's `_assemble_result`)."""
     inj, dlv, lat, occ_s, drop, infl = stats
@@ -640,6 +682,7 @@ def _assemble_result(tables: SimTables, traffic: Traffic, cfg: SimConfig,
         per_cycle_in_flight=infl,
         per_cycle_dropped=drop,
         q_src=cfg.q_src,
+        telemetry=telemetry,
     )
 
 
@@ -668,9 +711,6 @@ def open_loop_lanes(tables: SimTables, traffic: Traffic, cfgs: list,
     from `sources[i]` (None: a `TorchSource` seeded with its seed).
     Returns one `SimResult` per lane, each equal to its sequential run's."""
     cfg = cfgs[0]
-    if cfg.telemetry:
-        raise NotImplementedError(
-            "telemetry is not ported yet: ROADMAP Queue 1 #9")
     L = len(cfgs)
     dev = torch.device(device)
     core = SwitchCore(tables, cfg, device=dev, lanes=L)
@@ -691,6 +731,12 @@ def open_loop_lanes(tables: SimTables, traffic: Traffic, cfgs: list,
         lane = torch.arange(L, dtype=I32, device=dev) * (W + 1)
         offsets = (lane.view(L, 1, 1, 1), lane.view(L, 1))
 
+    tcfg = core.tel
+    ts = tel.init_state(tcfg, core)
+    sampler = (tel.trace.flow_sampler(tcfg.trace_sample_shift)
+               if tcfg.trace else None)
+    tel_kw = {} if ts is None else dict(tel_state=ts, trace_sample=sampler)
+
     nq_pkt, nq_count, sq_pkt, sq_count = core.init_queues()
     stats = torch.zeros((cfg.cycles, L, 5), dtype=I32, device=dev)
     lat_w = torch.zeros((cfg.cycles, L, W + 1), dtype=I32, device=dev)
@@ -710,11 +756,16 @@ def open_loop_lanes(tables: SimTables, traffic: Traffic, cfgs: list,
         new_pkt = pack_record(dst_r, inter, cycle, zeros_ep, phase)
         sq_pkt, sq_count = core.inject(sq_pkt, sq_count, want, new_pkt)
 
+        # ---- telemetry at the injection point (data only)
+        if ts is not None and ts.counters is not None:
+            tel.counters.count_routes(ts.counters, want, phase)
+
         # ---- shared switch pipeline with the open-loop fold
-        nq_pkt, nq_count, sq_pkt, sq_count, delivered = core.alloc(
+        nq_pkt, nq_count, sq_pkt, sq_count, delivered, *_ = core.alloc(
             nq_pkt, nq_count, sq_pkt, sq_count, occ, cycle,
             _open_loop_fold(lat_w[cycle], W, offsets), None,
-            cycle_dev=cycles_dev[cycle:cycle + 1])
+            cycle_dev=cycles_dev[cycle:cycle + 1],
+            trace_extra=(want, new_pkt), **tel_kw)
 
         src_occ = sq_count.sum(dim=1, dtype=I32)
         torch.stack([want.sum(dim=1, dtype=I32), delivered, src_occ,
@@ -733,5 +784,6 @@ def open_loop_lanes(tables: SimTables, traffic: Traffic, cfgs: list,
         out.append(_assemble_result(
             tables.lane(i if core.stacked else 0), traffic, c, n_active,
             (s_i[:, _INJ], s_i[:, _DLV], _fold_latency(lat_all[:, i]),
-             s_i[:, _OCC], s_i[:, _DROP], s_i[:, _INFL])))
+             s_i[:, _OCC], s_i[:, _DROP], s_i[:, _INFL]),
+            tel.snapshot(tcfg, ts, cfg.cycles, lane=i)))
     return out

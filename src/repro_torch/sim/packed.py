@@ -22,6 +22,7 @@ __all__ = [
     "MSG_JOB_SHIFT", "MAX_JOBS", "MAX_JOB_MSGS",
     "pack_record", "bump_hops_word",
     "pk_dst", "pk_inter", "pk_time", "pk_hops", "pk_phase", "pk_msg",
+    "pk_flow_key",
 ]
 
 PK = 3                      # int32 words per packed record
@@ -80,3 +81,10 @@ def bump_hops_word(w2, set_phase):
     phase = ((w2 >> 6) & 1) | set_phase
     rest = (w2 >> 7) << 7
     return rest | hops | (phase << 6)
+
+
+def pk_flow_key(pkt):
+    """Hop-invariant identity of a packet: (word 0, word 1), the
+    destination and intermediate routers and the inject cycle, which
+    `bump_hops_word` never touches (the open-loop trace sampler's key)."""
+    return pkt[..., 0], pkt[..., 1]

@@ -29,6 +29,10 @@ source per lane (e.g. a `ReplaySource` each).
 - L == 1 calls `simulate` / `run_workload` itself, so callers can
   sweep unconditionally.
 
+Telemetry is per lane: the counters and the trace ring carry the lane
+axis, so each lane's `telemetry` snapshot comes out of the one loop and
+equals its sequential run's.
+
 Tables are shared by every lane (one copy on the device, even FT-3's
 185.5 MB `ecmp_ports`) or stacked (`SimTables.stack`, a list of table
 sets).  The reference's `_SWEEP_CACHE` and `tables_signature` exist to
@@ -121,9 +125,6 @@ def sweep_simulate(tables: TablesLanes, traffic: Traffic, cfg: SimConfig,
     sequential `simulate` of its lane.
     """
     dev = resolve_device(device)
-    if cfg.telemetry:
-        raise NotImplementedError(
-            "telemetry is not ported yet: ROADMAP Queue 1 #9")
     tab = lane_tables(tables)
     rates_l = _as_list(rates, (int, float, np.integer, np.floating))
     seeds_l = _as_list(seeds, (int, np.integer))

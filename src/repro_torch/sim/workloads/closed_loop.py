@@ -37,7 +37,11 @@ every lane runs a different lowered schedule, its DAG and paths padded
 to common shapes and read at lane-flattened rows (l M + m).
 `run_workload` is the degenerate L = 1.
 
-Not ported yet: telemetry (ROADMAP Queue 1 #9).
+Telemetry (`repro_torch.sim.telemetry`, `WorkloadSimConfig.telemetry`):
+counters and a per-lane trace ring, sampled by message, updated at the
+injection point and inside `SwitchCore.alloc`; the snapshot is
+normalised over the trimmed `cycles_run`.  The policy sweep refuses
+it, as the reference does.
 """
 
 from __future__ import annotations
@@ -49,10 +53,12 @@ import numpy as np
 import torch
 
 from ... import resolve_device
+from .. import telemetry as tel
 from ..engine import BIG, SimConfig, SwitchCore, check_i32
 from ..packed import MAX_JOB_MSGS, MAX_JOBS, MSG_JOB_SHIFT, pack_record, pk_msg
 from ..random import LaneSources, TorchSource
 from ..tables import SimTables
+from ..telemetry import TelemetryConfig, TelemetrySnapshot
 from .ir import Workload
 from .mapping import place_ranks
 
@@ -79,14 +85,17 @@ class WorkloadSimConfig:
     chunk: int = 256                  # cycles between host checks
     max_cycles: int = 200_000         # give up (makespan = inf) past this
     kernel_path: str = "auto"         # auto | ref | cuda
-    telemetry: bool = False           # True: ROADMAP Queue 1 #9
+    # opt-in counters and tracing (repro_torch.sim.telemetry); the
+    # default is off and adds no operation to a cycle
+    telemetry: TelemetryConfig = TelemetryConfig()
 
     def to_sim_config(self) -> SimConfig:
         return SimConfig(vcs=self.vcs, q_net=self.q_net, q_src=self.q_src,
                          mode=self.mode,
                          n_val_candidates=self.n_val_candidates,
                          lookahead=self.lookahead, seed=self.seed,
-                         kernel_path=self.kernel_path)
+                         kernel_path=self.kernel_path,
+                         telemetry=self.telemetry)
 
 
 @dataclasses.dataclass
@@ -109,6 +118,7 @@ class WorkloadResult:
     msg_done: np.ndarray              # [M] completion cycle (-1 never)
     per_cycle_delivered: np.ndarray   # [cycles_run]
     ep_of_rank: np.ndarray            # [n_ranks] the placement used
+    telemetry: Optional[TelemetrySnapshot] = None
 
     @property
     def achieved_bw(self) -> float:
@@ -210,12 +220,6 @@ def _source_operands(wls: Sequence[Workload]) -> tuple:
             np.concatenate([w.vc_base for w in wls]).astype(np.int32))
 
 
-def _check_unported(cfg: WorkloadSimConfig) -> None:
-    if cfg.telemetry:
-        raise NotImplementedError(
-            "telemetry is not ported yet: ROADMAP Queue 1 #9")
-
-
 def _check_routing(cfg: WorkloadSimConfig) -> None:
     assert cfg.routing in ("table", "source"), cfg.routing
     if cfg.routing == "source":
@@ -296,7 +300,8 @@ def _closed_loop(tables: SimTables, ops: _Ops, cfgs: list, dev, sources: list,
     a message is sendable only from its job's admit cycle on; the
     device's admit vectors are written in place, never rebuilt.
     Returns (sent, flits_del, start_c, done_c) as [L, M] numpy, the
-    per-cycle deliveries [L, t], the last counts and t."""
+    per-cycle deliveries [L, t], the last counts, t and the telemetry
+    state (None with telemetry off)."""
     cfg = cfgs[0]
     L = len(cfgs)
     M, J = ops.M, len(ops.job_off) - 1
@@ -342,6 +347,14 @@ def _closed_loop(tables: SimTables, ops: _Ops, cfgs: list, dev, sources: list,
     # lands in the spare slot and is sliced off.  index_add_ counts
     # every duplicate index, so several flits of one message ejected in
     # the same cycle all count.
+    # closed-loop tracing samples whole messages: every flit and hop of
+    # a sampled message hashes the same packed MSG field
+    tcfg = core.tel
+    ts = tel.init_state(tcfg, core)
+    sampler = (tel.trace.msg_sampler(tcfg.trace_sample_shift)
+               if tcfg.trace else None)
+    tel_kw = {} if ts is None else dict(tel_state=ts, trace_sample=sampler)
+
     nq_pkt, nq_count, sq_pkt, sq_count = core.init_queues()
     sent = torch.zeros((L, M + 1), dtype=I32, device=dev)
     flits_del = torch.zeros((L, M + 1), dtype=I32, device=dev)
@@ -400,11 +413,16 @@ def _closed_loop(tables: SimTables, ops: _Ops, cfgs: list, dev, sources: list,
             0, msel, torch.full_like(ones_ep, cycle), reduce="amin",
             include_self=True)
 
+        # ---- telemetry at the injection point (data only)
+        if ts is not None and ts.counters is not None:
+            tel.counters.count_routes(ts.counters, want, phase)
+
         # ---- shared switch pipeline with the per-message fold
-        nq_pkt, nq_count, sq_pkt, sq_count, delivered = core.alloc(
+        nq_pkt, nq_count, sq_pkt, sq_count, delivered, *_ = core.alloc(
             nq_pkt, nq_count, sq_pkt, sq_count, occ, cycle, fold,
             torch.zeros((L,), dtype=I32, device=dev),
-            cycle_dev=cycles_dev[cycle:cycle + 1])
+            cycle_dev=cycles_dev[cycle:cycle + 1],
+            trace_extra=(want, new_pkt), **tel_kw)
 
         now_done = flits_del[:, :M] >= size
         done_c.masked_fill_(now_done & (done_c == BIG), cycle + 1)
@@ -447,7 +465,7 @@ def _closed_loop(tables: SimTables, ops: _Ops, cfgs: list, dev, sources: list,
 
     state = tuple(a[:, :M].cpu().numpy() for a in (sent, flits_del,
                                                     start_c, done_c))
-    return state, np.concatenate(per_cycle_dlv, axis=1), counts, t
+    return state, np.concatenate(per_cycle_dlv, axis=1), counts, t, ts
 
 
 def _lanes_done(M: int, done_lane: list) -> Callable:
@@ -474,7 +492,6 @@ def run_workload(tables: SimTables, wl: Workload,
     with `cfg.seed`), one ``route`` draw per cycle, also past completion
     to the chunk boundary."""
     dev = resolve_device(device)
-    _check_unported(cfg)
     if ep_of_rank is None:
         ep_of_rank = getattr(wl, "ep_of_rank", None)
     if ep_of_rank is None:
@@ -500,11 +517,11 @@ def closed_loop_lanes(tables: SimTables, wl: Workload, cfgs: list,
     routes = _source_operands((wl,)) if cfg.routing == "source" else None
     ops = _space_ops(space, tables, dev, routes)
     done_lane = [False] * len(cfgs)
-    state, dlv_all, _, t = _closed_loop(tables, ops, cfgs, dev, sources,
-                                        _lanes_done(ops.M, done_lane))
+    state, dlv_all, _, t, ts = _closed_loop(tables, ops, cfgs, dev, sources,
+                                            _lanes_done(ops.M, done_lane))
     return [_workload_result(wl, c, ep_of_rank,
                              tuple(a[i] for a in state), dlv_all[i],
-                             bool(done_lane[i]), t)
+                             bool(done_lane[i]), t, tel_state=ts, lane=i)
             for i, c in enumerate(cfgs)]
 
 
@@ -522,7 +539,6 @@ def sweep_run_workload_lanes(tables: SimTables, wl: Workload,
 
     cfg = cfg or WorkloadSimConfig()
     dev = resolve_device(device)
-    _check_unported(cfg)
     _check_routing(cfg)
     if ep_of_rank is None:
         ep_of_rank = getattr(wl, "ep_of_rank", None)
@@ -562,9 +578,10 @@ def sweep_run_workload_lanes(tables: SimTables, wl: Workload,
 def _workload_result(wl: Workload, cfg: WorkloadSimConfig,
                      ep_of_rank: np.ndarray, msg_state: tuple,
                      per_cycle_dlv: np.ndarray, completed: bool,
-                     cycles_run: int) -> WorkloadResult:
-    """Host-side reduction of final message counters into a
-    WorkloadResult."""
+                     cycles_run: int, tel_state=None,
+                     lane: int = 0) -> WorkloadResult:
+    """Host-side reduction of final message counters (and lane `lane`
+    of the telemetry state) into a WorkloadResult."""
     sent, flits_del, start_c, done_c = (
         np.asarray(a, dtype=np.int64) for a in msg_state)
     msg_start = np.where(start_c < BIG, start_c, -1)
@@ -575,6 +592,10 @@ def _workload_result(wl: Workload, cfg: WorkloadSimConfig,
         # trim the accounting to the true makespan
         cycles_run = int(done_c.max())
         per_cycle_dlv = per_cycle_dlv[:cycles_run]
+    # counters normalise over the trimmed span: the overrun cycles are
+    # post-drain (queues empty, no grants), so only occ_sum would be
+    # diluted by them
+    snap = tel.snapshot(cfg.telemetry, tel_state, cycles_run, lane=lane)
     return WorkloadResult(
         name=wl.name, mode=cfg.mode, placement=cfg.placement,
         n_ranks=wl.n_ranks, n_messages=wl.n_messages, completed=completed,
@@ -586,6 +607,7 @@ def _workload_result(wl: Workload, cfg: WorkloadSimConfig,
         msg_start=msg_start, msg_done=msg_done,
         per_cycle_delivered=per_cycle_dlv,
         ep_of_rank=ep_of_rank,
+        telemetry=snap,
     )
 
 
@@ -637,8 +659,11 @@ def _sweep_run_policies(tables: SimTables, wls: Sequence[Workload],
     """
     cfg = cfg or WorkloadSimConfig(routing="source")
     dev = resolve_device(device)
-    _check_unported(cfg)
     assert cfg.routing == "source" and cfg.mode == "min"
+    if cfg.telemetry.enabled:
+        raise ValueError(
+            "schedule search runs with telemetry off (per-lane traces of "
+            "operand-varying workloads are not supported)")
     assert tables.lanes == 1, \
         "policy sweeps vary the SCHEDULE per lane; topology is fixed"
     wls = list(wls)
@@ -672,8 +697,9 @@ def _sweep_run_policies(tables: SimTables, wls: Sequence[Workload],
         routes=(_on_dev(stacked["route_port"].reshape(L * M, hmax), dev),
                 _on_dev(stacked["vc_base"].reshape(L * M), dev)))
     done_lane = [False] * L
-    state, dlv_all, _, t = _closed_loop(tables, ops, [cfg] * L, dev,
-                                        [None] * L, _lanes_done(M, done_lane))
+    state, dlv_all, _, t, _ = _closed_loop(tables, ops, [cfg] * L, dev,
+                                           [None] * L,
+                                           _lanes_done(M, done_lane))
     out = []
     for i, w in enumerate(wls):
         m = w.n_messages

@@ -32,8 +32,8 @@ Semantics (also DESIGN.md §11):
 
 A port of `repro.sim.workloads.jobs`: the placement, arrival and
 admission logic is a numpy copy (its `numpy.random.default_rng` draws
-call for call), and the results carry no telemetry (ROADMAP Queue 1
-#9).
+call for call).  With `cfg.telemetry` on, `MultiJobResult.telemetry`
+holds the whole mix's counters and trace over the trimmed cycles_run.
 """
 
 from __future__ import annotations
@@ -45,11 +45,12 @@ import numpy as np
 
 from ... import resolve_device
 from ...core.layout import make_layout
+from .. import telemetry as tel
 from ..engine import BIG
 from ..tables import SimTables
+from ..telemetry import TelemetrySnapshot
 from .closed_loop import (WorkloadSimConfig, _build_space, _check_routing,
-                          _check_unported, _closed_loop, _source_operands,
-                          _space_ops)
+                          _closed_loop, _source_operands, _space_ops)
 from .ir import Workload
 from .mapping import place_ranks
 
@@ -129,6 +130,7 @@ class MultiJobResult:
     makespan: float                   # last job completion; inf if not
     flits_delivered: int
     per_cycle_delivered: np.ndarray   # [cycles_run]
+    telemetry: Optional[TelemetrySnapshot] = None
 
     def job(self, name: str) -> JobResult:
         for jr in self.jobs:
@@ -262,7 +264,6 @@ def run_jobs(tables: SimTables, jobs: Sequence[Job],
         raise ValueError("jobs must be sorted by arrival cycle "
                          "(list order is the FIFO order)")
     dev = resolve_device(device)
-    _check_unported(cfg)
     _check_routing(cfg)
 
     if placements is None:
@@ -298,7 +299,7 @@ def run_jobs(tables: SimTables, jobs: Sequence[Job],
             return new_admit.astype(np.int32)
         return None
 
-    state, dlv_all, _, t = _closed_loop(
+    state, dlv_all, _, t, ts = _closed_loop(
         tables, ops, [cfg], dev, [source], on_chunk,
         admit=admit.astype(np.int32), job_of_msg=job_of_msg)
     admit, done, completed = (outcome["admit"], outcome["done"],
@@ -339,4 +340,5 @@ def run_jobs(tables: SimTables, jobs: Sequence[Job],
         jobs=tuple(job_results), policy=policy, queue=queue,
         mode=cfg.mode, completed=completed, cycles_run=cycles_run,
         makespan=makespan, flits_delivered=int(flits_del.sum()),
-        per_cycle_delivered=per_cycle)
+        per_cycle_delivered=per_cycle,
+        telemetry=tel.snapshot(cfg.telemetry, ts, cycles_run))

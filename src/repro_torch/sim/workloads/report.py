@@ -9,9 +9,9 @@ ground truth; the FabricModel is the planning-time estimate used by
 `benchmarks/topology_collectives.py` and the training stack).
 
 A port of `repro.sim.workloads.report` (numpy only).  The reference's
-jit-cache helper becomes a plain bounded dict, and the report's
-telemetry lines wait for the telemetry layer (ROADMAP Queue 1 #9): the
-port's results carry none.
+jit-cache helper becomes a plain bounded dict; a result with counters
+on adds the telemetry summary lines to the table
+(`repro_torch.sim.telemetry.export.telemetry_summary`).
 
 Unit calibration: the simulator moves 1 flit per channel per cycle and
 pays ~1 cycle per hop, so a FabricModel built with
@@ -30,6 +30,7 @@ import numpy as np
 
 from ...core.topology import Topology
 from ...dist.topology_aware import FabricModel
+from ..telemetry import export
 from .closed_loop import WorkloadResult
 from .ir import Workload
 
@@ -76,6 +77,9 @@ class WorkloadReport:
             lines.append(f"{ph.name:16s} {ph.n_messages:6d} "
                          f"{ph.latency_mean:8.1f} {ph.latency_p50:8.1f} "
                          f"{ph.latency_p99:8.1f}")
+        if r.telemetry is not None and r.telemetry.counters is not None:
+            lines.extend(export.telemetry_summary(r.telemetry.counters,
+                                                  top=5))
         return "\n".join(lines)
 
 

@@ -19,6 +19,7 @@ from repro.sim.workloads import WorkloadSimConfig as JaxCfg
 from repro.sim.workloads import run_workload as jax_run_workload
 import repro_torch.core as tc
 from repro_torch.sim import SimConfig, SimTables, make_traffic, simulate
+from repro_torch.sim.telemetry import TelemetryConfig
 from repro_torch.sim.workloads import (WorkloadSimConfig, ring_all_reduce,
                                        run_workload, stencil)
 
@@ -148,25 +149,43 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         simulate(tt, make_traffic(tt, "uniform"), SimConfig(cycles=2))
 
 
+def _lowered_ring(tt):
+    """A 4-rank ring all-reduce policy lowered onto linear ranks."""
+    from repro_torch.dist.collectives import emit_policy
+    from repro_torch.sim.workloads import place_ranks
+    rt = tc.build_routing(tt.topo, device="cpu")
+    ep = place_ranks(tt, 4, "linear")
+    return emit_policy("ring_all_reduce", rt, 4, 2,
+                       tt.ep_router[ep].astype(np.int64)).lower(tt, ep)
+
+
+_COUNTERS = TelemetryConfig(counters=True)
+# the options this test once held refused (telemetry, then not ported):
+# each now runs and returns its counters
 UNPORTED = {
-    # source routing is ported; its telemetry is not
     "run_workload-source": lambda tt: run_workload(
-        tt, ring_all_reduce(4, 2),
-        WorkloadSimConfig(routing="source", telemetry=True), device="cpu"),
+        tt, _lowered_ring(tt),
+        WorkloadSimConfig(routing="source", telemetry=_COUNTERS),
+        device="cpu"),
     "run_workload-telemetry": lambda tt: run_workload(
-        tt, ring_all_reduce(4, 2), WorkloadSimConfig(telemetry=True),
+        tt, ring_all_reduce(4, 2), WorkloadSimConfig(telemetry=_COUNTERS),
         device="cpu"),
     "simulate-telemetry": lambda tt: simulate(
-        tt, make_traffic(tt, "uniform"), SimConfig(telemetry=True, cycles=2),
-        device="cpu"),
+        tt, make_traffic(tt, "uniform"),
+        SimConfig(telemetry=_COUNTERS, cycles=2, warmup=0), device="cpu"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unported_options_raise(case):
+    """Telemetry is ported (it raised NotImplementedError before): each
+    once-refused option now runs, with grants == channel forwards +
+    ejections in its counters."""
     _, tt = _tables(5)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        UNPORTED[case](tt)
+    r = UNPORTED[case](tt)
+    cs = r.telemetry.counters
+    assert cs.alloc_grant.sum() == cs.chan_flits.sum() + cs.ej_count.sum()
+    assert cs.alloc_grant.sum() > 0 or case == "simulate-telemetry"
 
 
 # ---------------------------------------------------------------------------

@@ -944,3 +944,64 @@ def test_policy_sweep_kernel_path_matches_plain_path(cuda_device):
             assert np.array_equal(v, getattr(r, f)), f
     for f, v in vars(seq).items():
         assert np.array_equal(v, getattr(lanes[3], f)), f
+
+
+# ---------------------------------------------------------------------------
+# resiliency: the batched min-plus over failure samples, and telemetry
+# beside the kernels
+
+@pytest.mark.cuda
+def test_minplus_cuda_batched_failure_samples_match_plain(cuda_device):
+    """Ten failure samples of Slim Fly q=7 (one that disconnects) in ONE
+    stacked APSP on the card: each squaring is one batched launch, and
+    the distances equal the plain version's exactly, saturation
+    included; `routed_resilience_sweep` gives the same dict on both
+    paths."""
+    from repro_torch.core import build_slimfly
+    from repro_torch.core.resiliency import (failure_sample,
+                                             routed_resilience_sweep)
+    from repro_torch.kernels.ops import apsp
+    topo = build_slimfly(7)
+    n = topo.n_routers
+    rng = np.random.default_rng(7)
+    adjs = np.stack([failure_sample(topo, f, rng)
+                     for f in [0.05] * 5 + [0.3] * 4 + [0.9]])
+    before = minplus_cuda.launches
+    got = apsp(adjs, device=cuda_device, max_diameter=n, kernel_path="cuda")
+    torch.cuda.synchronize()
+    assert minplus_cuda.launches - before == int(np.ceil(np.log2(n)))
+    want = apsp(adjs, device=cuda_device, max_diameter=n, kernel_path="ref")
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert bool((got[-1] == BIG).any())
+    kw = dict(n_samples=4, seed=7, fractions=np.array([0.05, 0.3, 0.9]),
+              device=cuda_device)
+    assert (routed_resilience_sweep(topo, kernel_path="cuda", **kw)
+            == routed_resilience_sweep(topo, kernel_path="ref", **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["min", "ugal_l", "ugal_g"])
+def test_telemetry_kernel_path_matches_plain_path(cuda_device, mode):
+    """Counters and a fully sampled trace ring at q=7 on the card: the
+    kernel path's equal the plain path's element for element, and the
+    core results equal the telemetry-off run's."""
+    from repro_torch.core import build_slimfly
+    from repro_torch.sim import SimConfig, SimTables, make_traffic, simulate
+    from repro_torch.sim.telemetry import TelemetryConfig
+    tab = SimTables.build(build_slimfly(7), device=cuda_device)
+    tr = make_traffic(tab, "uniform")
+    tel = TelemetryConfig(counters=True, trace=True, trace_sample_shift=1,
+                          trace_capacity=1 << 14)
+    cfg = dict(injection_rate=0.5, cycles=200, warmup=50, mode=mode, seed=3)
+    runs = [simulate(tab, tr, SimConfig(kernel_path=p, telemetry=tel, **cfg))
+            for p in ("cuda", "ref")]
+    off = simulate(tab, tr, SimConfig(kernel_path="cuda", **cfg))
+    a, b = runs[0].telemetry, runs[1].telemetry
+    for f in vars(a.counters):
+        assert np.array_equal(getattr(a.counters, f),
+                              getattr(b.counters, f)), f
+    assert np.array_equal(a.events, b.events) and len(a.events) > 0
+    assert a.events_dropped == b.events_dropped
+    for f, v in vars(off).items():
+        if f != "telemetry":
+            assert np.array_equal(v, getattr(runs[0], f)), f

@@ -47,6 +47,7 @@ from repro_torch.sim import (ReplaySource, SimConfig, SimTables,
                              sweep_simulate)
 from repro_torch.sim.engine import BIG, OCC_CAP
 from repro_torch.sim.sweep import sweep_run_policies
+from repro_torch.sim.telemetry import TelemetryConfig
 from repro_torch.sim.workloads import (WorkloadSimConfig, place_ranks,
                                        ring_all_reduce, run_workload)
 from test_torch_cuda import UNREACH, alloc_lane_args, failure_mask
@@ -186,14 +187,21 @@ def test_sweep_ragged_lanes_raise():
 
 
 def test_unported_sweep_options_raise():
+    """Telemetry is ported: a sweep with counters on runs (it raised
+    NotImplementedError before) and reports each lane's; the policy
+    sweep refuses telemetry, as the reference's does."""
     _, tl = lane_tables("sf5")
     tr = make_traffic(tl[0], "uniform")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #9"):
-        sweep_simulate(tl[0], tr, SimConfig(telemetry=True), rates=[0.1, 0.2],
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #9"):
+    tel = TelemetryConfig(counters=True)
+    out = sweep_simulate(tl[0], tr, SimConfig(telemetry=tel, cycles=20,
+                                              warmup=5),
+                         rates=[0.1, 0.2], device="cpu")
+    for r in out:
+        cs = r.telemetry.counters
+        assert cs.cycles == 20 and cs.alloc_grant.sum() > 0
+    with pytest.raises(ValueError, match="telemetry off"):
         sweep_run_policies(tl[0], [ring_all_reduce(4, 2)],
-                           WorkloadSimConfig(routing="source", telemetry=True),
+                           WorkloadSimConfig(routing="source", telemetry=tel),
                            device="cpu")
 
 
