@@ -66,14 +66,16 @@ Phases, one JSON line each; any failure exits non-zero:
     with cap 50 and ragged lengths, the serve profile's rows (4500, 2049,
     1024, 300 at S = 8192), 256 heads of length-1 rows beside one full
     row, h2o-danube-1.8b's head dim 80, the reference kernel test's four
-    shapes, an S off the tile and a head dim of 33 (rows that are not
-    16-byte multiples: the block-copy path), each with float32 and
-    bfloat16 inputs,
+    shapes, an S off the tile, a head dim of 33 (rows that are not
+    16-byte multiples: the block-copy path) and the model zoo's other
+    shapes at their serves' rows (mixtral G = 6, llama4 G = 5, zamba2's
+    shared block d = 112, phi-3-vision d = 96, whisper d = 64), each
+    with float32 and bfloat16 inputs,
     within a stated tolerance; the kernel's, the plain version's and
     scaled_dot_product_attention's times (cap None: no PyTorch call
     computes the capped function) beside the byte bound and the share of
     it reached (bound_share), for full, ragged and serve-profile rows in
-    float32 and full rows in bfloat16;
+    float32 and full rows in bfloat16, and at each zoo shape in both;
 13. serve (the serving slice's main path, at full width): gemma2-2b with
     random weights from a seeded generator on the card, float32, a
     ServingEngine of 4 slots and max_len 8192 serving 6 requests (prompts
@@ -221,11 +223,44 @@ Phases, one JSON line each; any failure exits non-zero:
 32. resiliency_drivers: the port's Table III, faults-sweep and
     telemetry-export drivers in smoke mode: rows equal to the
     reference's (TABLE3_SMOKE_ROWS, FAULTS_SMOKE_ROWS; the telemetry
-    driver's names, TELEMETRY_SMOKE_ROWS), wall seconds.
+    driver's names, TELEMETRY_SMOKE_ROWS), wall seconds;
+33. serve_moe: mixtral-8x22b (depth cut 56 -> 4, float32) and
+    llama4-maverick (depth cut 48 -> 2: one dense and one MoE layer,
+    bfloat16 weights and cache) at their published widths with random
+    weights from a seeded generator on the card, a ServingEngine of 4
+    slots serving 6 requests that refill them (mixtral: phase 13's
+    prompts, the 4,500-token one rolling the 4,096-position ring): prefill
+    seconds, decode ms per step and tokens/s beside the weight-read
+    bound, peak memory, and the decode kernel's launches = attention
+    layers x decode steps;
+34. serve_hybrid: zamba2-7b at full width and depth (81 Mamba2 layers, 13
+    shared-attention sites), float32, prompts up to 1,024 tokens across
+    the scan's 128-position chunk, as phase 33;
+35. serve_xlstm: xlstm-1.3b at full width and depth (42 mLSTM, 6 sLSTM),
+    float32, short prompts (its sLSTM runs one step per token), as phase
+    33 (the decode kernel launches 0 times: no attention);
+36. encdec: phi-3-vision through the ServingEngine as phase 33, then
+    whisper-small (stub frames [4, 1500, 768]) and phi-3-vision (576 stub
+    patches) through prefill and greedy decode_step, full width and
+    depth, float32;
+37. zoo_paths_equal (one line after each run of 33-36): the same run
+    through the decode kernel's plain version, fed the kernel path's
+    tokens: logits within LOGIT_RTOL (bfloat16: ZOO_LOGIT_RTOL) of the
+    largest up to the first MoE routing flip, greedy tokens equal except
+    where the top-2 margin is below it, and every routing flip (expert
+    or keep differing between the paths) on a near tie (router-logit gap
+    below ROUTER_TIE_GAP), reported;
+38. zoo_held: reduced configs of mixtral, llama4, zamba2, xlstm,
+    phi-3-vision, gemma2-2b in the scan layout (engine), whisper and
+    phi-3-vision with patches (prefill and decode) with numpy-seeded
+    weights on the card: greedy tokens equal to the reference's
+    (GOLDEN_ZOO_HELD), the decode kernel launched wherever there is
+    attention.
 
 Then a line {"kernels": [...]} with each kernel's launches on its main
 path (the open loop's for the simulator's three kernels, the serve
-phase's for decode attention), its largest difference from the plain
+phase's for decode attention, with its launches on each phase 33-36
+serve path under "zoo"), its largest difference from the plain
 version, its time, the plain version's time, its bound and what bounds
 it, and the library call's time where one exists (decode attention
 also in bfloat16 and at the serve profile's rows; allocation also at
@@ -245,6 +280,7 @@ times and bounds at the three fabrics' [10, n, n]); and the last line
 around it, it fails before printing any result.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -393,6 +429,18 @@ MINPLUS_PER_BUILD = 6
 
 # the global layer's valid rows in the serve profile's decode step
 SERVE_ROWS = (4500, 2049, 1024, 300)
+# The model zoo's other decode shapes at their serves' rows (phases
+# 33-36): mixtral-8x22b (G = 6 over two row groups of the kernel, its
+# 4,096-position window), llama4-maverick (G = 5), zamba2-7b's shared
+# block (d = 112), phi-3-vision (d = 96) and whisper-small's decoder:
+# (B, Hkv, G, d, S, cap, lengths)
+ZOO_DECODE_SHAPES = {
+    "mixtral": (4, 8, 6, 128, 4096, None, (4096, 1, 2049, 300)),
+    "llama4": (4, 8, 5, 128, 1024, None, (512, 1, 300, 77)),
+    "zamba2_shared": (4, 32, 1, 112, 2048, None, (1024, 1, 600, 150)),
+    "phi3v": (4, 32, 1, 96, 2048, None, (1024, 1, 600, 640)),
+    "whisper": (4, 12, 1, 64, 448, None, (96, 1, 40, 448)),
+}
 # Phase 12's cases: (name, B, Hkv, G, d, S, cap, lengths or None = drawn)
 DECODE_CASES = [
     ("gemma2_global", 4, 4, 2, 256, 8192, 50.0, (1, 4096, 4500, 8192)),
@@ -406,7 +454,7 @@ DECODE_CASES = [
     ("serve_lengths", 4, 4, 2, 256, 8192, 50.0, SERVE_ROWS),
     ("short_heads", 32, 8, 2, 128, 2048, 50.0, (1,) * 31 + (2048,)),
     ("odd_d", 2, 2, 3, 33, 200, 50.0, (199, 77)),
-]
+] + [(name, *shape) for name, shape in ZOO_DECODE_SHAPES.items()]
 # (atol, rtol).  float32: the same sums in another order.  bfloat16: the
 # float32 result rounded once, which may land one bfloat16 step (at most
 # 2**-7 of the value) away from the plain version's rounding; the atol
@@ -799,6 +847,67 @@ def serve_requests(Request, vocab, prompts, new, seed):
             for i, (n, m) in enumerate(zip(prompts, new))]
 
 
+class PathSampler:
+    """Greedy sampler of the kernel-path run that records each call's
+    logits and tokens (`forced=None`), or of the plain-path run that
+    returns the recorded tokens and keeps each call's largest logit
+    difference relative to the largest |logit|; a differing greedy token
+    is a flip, allowed where the top-2 margin is below `rtol`."""
+
+    def __init__(self, rtol: float, forced=None):
+        self.rtol, self.forced = rtol, forced
+        self.recorded, self.diffs, self.flips = [], [], []
+
+    @property
+    def calls(self) -> int:
+        return len(self.recorded) + len(self.diffs)
+
+    def __call__(self, logits):
+        import torch
+        tok = torch.argmax(logits, -1)
+        if self.forced is None:
+            self.recorded.append((logits.clone(), tok.clone()))
+            return tok
+        k_logits, k_tok = self.forced.recorded[self.calls]
+        scale = k_logits.float().abs().max()
+        self.diffs.append(((logits.float() - k_logits.float()).abs().max()
+                           / scale).item())
+        for row in torch.nonzero(tok != k_tok).flatten().tolist():
+            top2 = torch.topk(logits[row].float(), 2).values
+            margin = ((top2[0] - top2[1]) / scale).item()
+            self.flips.append(dict(call=self.calls - 1, row=row,
+                                   margin=margin, ok=margin < self.rtol))
+        return k_tok
+
+
+def serve_run(cfg, params, prompts, dtype, max_len, kernel_path, sampler):
+    """One ServingEngine run on the card (SERVE_SLOTS slots, SERVE_NEW new
+    tokens per request): (done, engine, prefill seconds, decode seconds)."""
+    import torch
+    from repro_torch.serving import Request, ServingEngine
+    eng = ServingEngine(params, cfg, batch_slots=SERVE_SLOTS,
+                        max_len=max_len, dtype=dtype, sampler=sampler,
+                        kernel_path=kernel_path)
+    admit_s = [0.0]
+    real_admit = eng._admit
+
+    def timed_admit(slot, req):
+        torch.cuda.synchronize()
+        ta = time.perf_counter()
+        real_admit(slot, req)
+        torch.cuda.synchronize()
+        admit_s[0] += time.perf_counter() - ta
+    eng._admit = timed_admit
+    reqs = serve_requests(Request, cfg.vocab, prompts, SERVE_NEW, SERVE_SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    del eng._admit
+    return done, eng, admit_s[0], run_s - admit_s[0]
+
+
 def attn_decode_phase(dev, report) -> None:
     """Phase 12: the decode-attention kernel against its plain version,
     and its times; fills report["decode_attention"]."""
@@ -873,6 +982,12 @@ def attn_decode_phase(dev, report) -> None:
         "serve_lengths_f32": decode_times(4, 4, 2, 256, 8192, SERVE_ROWS,
                                           torch.float32),
     }
+    zoo_times = {f"{name}_{dt_name}": decode_times(B, Hkv, G, d, S, lengths,
+                                                   dt, cap=cap)
+                 for name, (B, Hkv, G, d, S, cap, lengths)
+                 in ZOO_DECODE_SHAPES.items()
+                 for dt_name, dt in (("f32", torch.float32),
+                                     ("bf16", torch.bfloat16))}
     main_t, bf_t = dtimes["global_full_f32"], dtimes["global_full_bf16"]
     report["decode_attention"] = dict(
         max_abs_err=err["float32"], max_abs_err_bf16=err["bfloat16"],
@@ -881,9 +996,13 @@ def attn_decode_phase(dev, report) -> None:
         ms_bf16=bf_t["ms"], bound_ms_bf16=bf_t["bound_ms"],
         library_ms_bf16=bf_t["library_ms"],
         ms_serve_lengths=dtimes["serve_lengths_f32"]["ms"],
-        bound_ms_serve_lengths=dtimes["serve_lengths_f32"]["bound_ms"])
+        bound_ms_serve_lengths=dtimes["serve_lengths_f32"]["bound_ms"],
+        zoo_shapes={k: {f: t[f] for f in ("shape", "lengths", "ms",
+                                          "plain_ms", "library_ms",
+                                          "bound_ms", "bound_share")}
+                    for k, t in zoo_times.items()})
     emit({"phase": "attn_decode", "cases": checked, "tolerance": DECODE_TOL,
-          "max_abs_err": err, "times": dtimes,
+          "max_abs_err": err, "times": dtimes, "zoo_times": zoo_times,
           "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa)"
                      " without the cap: no PyTorch call computes the capped "
                      "function", "wall_s": time.perf_counter() - t0})
@@ -909,37 +1028,15 @@ def serve_phases(dev) -> dict:
     init_s = time.perf_counter() - t0
     n_params = param_count(params)
     weight_bytes = 4 * n_params
-    recorded = []           # (logits, greedy tokens) of every sampler call
-
-    def record(logits):
-        tok = torch.argmax(logits, -1)
-        recorded.append((logits.clone(), tok.clone()))
-        return tok
-
+    # records the logits and greedy tokens of every sampler call
+    recorded = PathSampler(LOGIT_RTOL)
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    eng = ServingEngine(params, cfg, batch_slots=SERVE_SLOTS,
-                        max_len=SERVE_MAX_LEN, sampler=record)
-    admit_s = [0.0]
-    real_admit = eng._admit
-
-    def timed_admit(slot, req):
-        torch.cuda.synchronize()
-        ta = time.perf_counter()
-        real_admit(slot, req)
-        torch.cuda.synchronize()
-        admit_s[0] += time.perf_counter() - ta
-    eng._admit = timed_admit
-    reqs = serve_requests(Request, cfg.vocab, SERVE_PROMPTS, SERVE_NEW,
-                          SERVE_SEED)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = eng.run(reqs)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
+    done, eng, prefill_s, decode_s = serve_run(
+        cfg, params, SERVE_PROMPTS, torch.float32, SERVE_MAX_LEN, "auto",
+        recorded)
     launches_serve = kernels.launch_counts()
     peak_serve = torch.cuda.max_memory_allocated()
-    decode_s = run_s - admit_s[0]
     decoded = sum(len(r.out_tokens) - 1 for r in done)
     out_counts = {r.rid: len(r.out_tokens) for r in done}
     serve_tokens = {r.rid: r.out_tokens for r in done}
@@ -949,7 +1046,7 @@ def serve_phases(dev) -> dict:
           "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
           "prompts": SERVE_PROMPTS, "max_new_tokens": SERVE_NEW,
           "tokens_out": out_counts, "decode_steps": eng.steps,
-          "init_params_s": init_s, "prefill_s": admit_s[0],
+          "init_params_s": init_s, "prefill_s": prefill_s,
           "decode_s": decode_s, "decode_ms_per_step": 1e3 * decode_s
           / eng.steps, "decode_tokens": decoded,
           "decode_tokens_per_s": decoded / decode_s,
@@ -961,50 +1058,25 @@ def serve_phases(dev) -> dict:
     assert eng.steps == SERVE_STEPS, eng.steps
     assert launches_serve["decode_attention"] == cfg.n_layers * eng.steps, (
         launches_serve)
-    # timed_admit holds eng through its bound method: drop the instance
-    # attribute, or the cycle keeps the engine's weights and cache on the
-    # card until the garbage collector runs
-    del eng._admit
     del eng, done
     torch.cuda.empty_cache()
 
     # ---- 14. serving, kernel path against plain path, same tokens fed
-    calls = [0]
-    worst = [0.0]
-    flips = []
-
-    def forced(logits):
-        k_logits, k_tok = recorded[calls[0]]
-        rel = ((logits - k_logits).abs().max()
-               / k_logits.abs().max()).item()
-        worst[0] = max(worst[0], rel)
-        tok = torch.argmax(logits, -1)
-        for row in torch.nonzero(tok != k_tok).flatten().tolist():
-            top2 = torch.topk(logits[row], 2).values
-            margin = ((top2[0] - top2[1]) / logits.abs().max()).item()
-            flips.append(dict(call=calls[0], row=row, margin=margin,
-                              ok=margin < LOGIT_RTOL))
-        calls[0] += 1
-        return k_tok
+    forced = PathSampler(LOGIT_RTOL, forced=recorded)
     before = kernels.launch_counts()["decode_attention"]
-    t0 = time.perf_counter()
-    eng = ServingEngine(params, cfg, batch_slots=SERVE_SLOTS,
-                        max_len=SERVE_MAX_LEN, sampler=forced,
-                        kernel_path="ref")
-    done = eng.run(serve_requests(Request, cfg.vocab, SERVE_PROMPTS,
-                                  SERVE_NEW, SERVE_SEED))
-    torch.cuda.synchronize()
-    ref_s = time.perf_counter() - t0
-    emit({"phase": "serve_paths_equal", "sampler_calls": calls[0],
-          "max_rel_logit_diff": worst[0], "logit_rtol": LOGIT_RTOL,
-          "token_flips": flips, "ref_run_s": ref_s,
+    done, eng, prefill_s, decode_s = serve_run(
+        cfg, params, SERVE_PROMPTS, torch.float32, SERVE_MAX_LEN, "ref",
+        forced)
+    emit({"phase": "serve_paths_equal", "sampler_calls": forced.calls,
+          "max_rel_logit_diff": max(forced.diffs), "logit_rtol": LOGIT_RTOL,
+          "token_flips": forced.flips, "ref_run_s": prefill_s + decode_s,
           "tokens_equal": {r.rid: r.out_tokens for r in done}
           == serve_tokens})
     assert kernels.launch_counts()["decode_attention"] == before
-    assert calls[0] == len(recorded), (calls[0], len(recorded))
-    assert worst[0] <= LOGIT_RTOL, worst[0]
-    assert all(f["ok"] for f in flips), flips
-    del eng, done, params, recorded
+    assert forced.calls == recorded.calls, (forced.calls, recorded.calls)
+    assert max(forced.diffs) <= LOGIT_RTOL, max(forced.diffs)
+    assert all(f["ok"] for f in forced.flips), forced.flips
+    del eng, done, params, recorded, forced
     torch.cuda.empty_cache()
 
     # ---- 15. reduced gemma2-2b held against the reference's tokens
@@ -2507,6 +2579,403 @@ def resiliency_phases(dev, ctx: dict) -> dict:
     return {"launches": launches, "times": times}
 
 
+
+# ---------------------------------------------------------------------------
+# Phases 33-38: the rest of the model zoo's serving path
+
+# Serves at the published widths (depth cut where one layer is billions of
+# parameters): (phase, arch, layers or None = published depth, weight
+# dtype, prompts, max_len).  Every serve is 4 slots whose
+# requests refill them; with SERVE_NEW every run takes SERVE_STEPS decode
+# steps.  mixtral takes phase 13's prompts (the 4,500-token one rolls its
+# 4,096-position ring); zamba2 and xlstm each have prompts across the
+# 128-position chunk of their scans, xlstm's short (its sLSTM runs one
+# step per token).
+ZOO_SERVES = [
+    ("serve_moe", "mixtral-8x22b", 4, "float32", SERVE_PROMPTS, 8192),
+    ("serve_moe", "llama4-maverick-400b-a17b", 2, "bfloat16",
+     (512, 300, 129, 77, 40, 5), 1024),
+    ("serve_hybrid", "zamba2-7b", None, "float32",
+     (1024, 300, 150, 77, 40, 5), 2048),
+    ("serve_xlstm", "xlstm-1.3b", None, "float32",
+     (300, 150, 77, 40, 20, 5), 512),
+    ("encdec", "phi-3-vision-4.2b", None, "float32",
+     (1024, 300, 150, 77, 40, 5), 2048),
+]
+# Phase 36's direct runs (prefill then greedy decode_step, batch 4):
+# whisper-small with stub frames [4, 1500, 768] (the encoder's 30 s of
+# audio) and a 64-token prompt in a 448-position context; phi-3-vision
+# with 576 stub patches (its 24 x 24 grid) before a 64-token prompt
+ZOO_DIRECT = [("whisper-small", "frames", 1500, 64, 32, 448),
+              ("phi-3-vision-4.2b", "patches", 576, 64, 32, 1024)]
+# Kernel path against plain path (phase 37), relative to the largest
+# |logit|: float32 as phase 14; bfloat16 (llama4's weights and cache) eight
+# bfloat16 steps (8 * 2**-8) -- the kernel and the plain version each
+# round their output to bfloat16 once, and the step is re-rounded in
+# every layer
+ZOO_LOGIT_RTOL = {"float32": LOGIT_RTOL, "bfloat16": 8 * 2.0 ** -8}
+# A routing decision that differs between the paths must sit on a near
+# tie: its router-logit gap (the smallest gap between adjacent ones of
+# the top k + 1 experts, on the plain path) below this
+ROUTER_TIE_GAP = 0.05
+
+# Phase 38: reduced configs (configs.reduced(cfg, 4)) with the weights of
+# numpy_params(cfg, ZOO_HELD["seed"]) served on the card.  The engine
+# archs serve `prompts` / `new` from default_rng(prompt_seed) on `slots`
+# slots (requests refill them; the first prompt crosses the scans'
+# 128-position chunk); the direct ones run prefill on a batch of `batch`
+# rows of `prompt` tokens (with `frames` stub frames or `patches` stub
+# patches from default_rng(prompt_seed)) and `steps` greedy decode steps.
+# GOLDEN_ZOO_HELD holds the reference's greedy tokens (repro.serving.
+# ServingEngine and repro.models.model prefill/decode_step, jax 0.9.0, on
+# the CPU); tests/test_torch_zoo_held.py recomputes them from the live
+# reference and holds the port on the CPU to them.
+ZOO_HELD = dict(n_layers=4, seed=0, slots=2, max_len=192, prompt_seed=38,
+                prompts=(130, 9, 23), new=(6, 10, 5), batch=2, prompt=20,
+                steps=8, frames=24, patches=8)
+ZOO_HELD_ENGINE = ("mixtral-8x22b", "llama4-maverick-400b-a17b", "zamba2-7b",
+                   "xlstm-1.3b", "phi-3-vision-4.2b", "gemma2-2b-scan")
+ZOO_HELD_DIRECT = ("whisper-small", "phi-3-vision-4.2b+patches")
+GOLDEN_ZOO_HELD = {
+    "mixtral-8x22b": {
+        0: [125, 168, 123, 240, 240, 80],
+        1: [227, 227, 53, 40, 227, 40, 151, 227, 227, 178],
+        2: [175, 154, 210, 94, 165],
+    },
+    "llama4-maverick-400b-a17b": {
+        0: [94, 1, 41, 136, 27, 94],
+        1: [212, 224, 194, 212, 212, 212, 16, 12, 212, 241],
+        2: [20, 41, 97, 216, 161],
+    },
+    "zamba2-7b": {
+        0: [113, 113, 113, 113, 162, 220],
+        1: [248, 83, 68, 98, 28, 134, 7, 254, 108, 179],
+        2: [233, 182, 116, 32, 136],
+    },
+    "xlstm-1.3b": {
+        0: [196, 118, 34, 44, 141, 80],
+        1: [80, 140, 147, 200, 195, 37, 146, 93, 93, 227],
+        2: [172, 125, 141, 140, 63],
+    },
+    "phi-3-vision-4.2b": {
+        0: [23, 23, 23, 23, 23, 23],
+        1: [242, 47, 181, 28, 181, 246, 28, 181, 132, 169],
+        2: [4, 4, 4, 131, 250],
+    },
+    "gemma2-2b-scan": {
+        0: [250, 212, 55, 50, 128, 16],
+        1: [141, 42, 28, 231, 213, 213, 139, 25, 141, 123],
+        2: [126, 126, 126, 18, 21],
+    },
+    "whisper-small": [
+        [206, 206, 206, 206, 206, 206, 24, 206, 77],
+        [91, 193, 24, 248, 162, 248, 248, 248, 162],
+    ],
+    "phi-3-vision-4.2b+patches": [
+        [68, 66, 254, 254, 254, 218, 21, 11, 218],
+        [241, 147, 235, 50, 165, 109, 109, 109, 109],
+    ],
+}
+
+
+def zoo_held_cfg(configs, arch: str):
+    """Phase 38's reduced config of `arch` ('-scan': the scan layout;
+    '+patches': with the vision stub's patches)."""
+    base = arch.split("+")[0]
+    scan = base.endswith("-scan")
+    cfg = configs.reduced(configs.get(base[:-len("-scan")] if scan
+                                      else base),
+                          n_layers=ZOO_HELD["n_layers"])
+    return dataclasses.replace(cfg, scan_layers=scan)
+
+
+def zoo_held_direct_inputs(cfg, arch: str) -> dict:
+    """Phase 38's numpy batch for a direct arch: tokens [batch, prompt +
+    steps] (the prompt, then nothing else is read) and the stub frames or
+    patches."""
+    import numpy as np
+    h = ZOO_HELD
+    rng = np.random.default_rng(h["prompt_seed"])
+    out = dict(tokens=rng.integers(0, cfg.vocab, (h["batch"], h["prompt"]),
+                                   dtype=np.int32))
+    if cfg.n_encoder_layers:
+        out["frames"] = rng.standard_normal(
+            (h["batch"], h["frames"], cfg.d_model), dtype=np.float32)
+    if arch.endswith("+patches"):
+        out["patches"] = rng.standard_normal(
+            (h["batch"], h["patches"], cfg.d_model), dtype=np.float32)
+    return out
+
+
+def zoo_held_tokens(arch: str, device):
+    """Phase 38's greedy tokens of the port on `device`: {rid: tokens}
+    for an engine arch, [row tokens] for a direct one."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model as tm
+    from repro_torch.serving import Request, ServingEngine
+    h = ZOO_HELD
+    cfg = zoo_held_cfg(configs, arch)
+    params = tm.params_from_numpy(tm.numpy_params(cfg, h["seed"]), cfg,
+                                  device)
+    if arch in ZOO_HELD_ENGINE:
+        eng = ServingEngine(params, cfg, batch_slots=h["slots"],
+                            max_len=h["max_len"], device=device)
+        done = eng.run(serve_requests(Request, cfg.vocab, h["prompts"],
+                                      h["new"], h["prompt_seed"]))
+        return {r.rid: r.out_tokens for r in done}
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in zoo_held_direct_inputs(cfg, arch).items()}
+    cache = tm.init_cache(cfg, h["batch"], h["max_len"], torch.float32,
+                          device)
+    logits, cache = tm.prefill(params, batch, cfg, cache)
+    out = [torch.argmax(logits[:, -1], -1)]
+    for _ in range(h["steps"]):
+        logits, cache = tm.decode_step(params, out[-1][:, None].to(
+            torch.int32), cfg, cache)
+        out.append(torch.argmax(logits[:, -1], -1))
+    return torch.stack(out, 1).tolist()
+
+
+def attention_layers(cfg) -> int:
+    """Decode-kernel launches per decode step: the attention layers and
+    the hybrid's shared-attention sites (none in xLSTM)."""
+    return sum(s["kind"] == "attn" or bool(s.get("shared_attn"))
+               for s in cfg.layer_kinds())
+
+
+class RouteLog:
+    """Wraps `repro_torch.models.moe.moe_route` to keep each call's
+    decisions (experts, keep mask) and router-logit gaps on the device,
+    tagged with the sampler call they precede."""
+
+    def __init__(self, moe_module, sampler):
+        self.module, self.real = moe_module, moe_module.moe_route
+        self.sampler, self.calls = sampler, []
+
+    def __enter__(self):
+        def logged(xt, router, top_k, capacity_factor):
+            import torch
+            out = self.real(xt, router, top_k, capacity_factor)
+            logits = xt.float() @ router.float()
+            srt = torch.sort(logits, -1, descending=True).values
+            n = min(top_k + 1, srt.shape[-1])
+            gap = (srt[..., :n - 1] - srt[..., 1:n]).amin(-1)   # [G, Tg]
+            self.calls.append((self.sampler.calls, out[1].clone(),
+                               out[3].clone(), gap))
+            return out
+        self.module.moe_route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.module.moe_route = self.real
+
+    def flips_against(self, ref: "RouteLog", top_k: int) -> list:
+        """Routing decisions of this (kernel-path) run that differ from
+        `ref`'s: (sampler call, token, ref's router gap)."""
+        out = []
+        assert len(self.calls) == len(ref.calls)
+        for (call, e, keep, _), (_, re, rkeep, rgap) in zip(self.calls,
+                                                           ref.calls):
+            diff = ((e != re) | (keep != rkeep)).reshape(
+                e.shape[0], -1, top_k).any(-1)                 # [G, Tg]
+            for g, t in diff.nonzero().tolist():
+                out.append(dict(call=call, token=t,
+                                gap=rgap[g, t].item()))
+        return out
+
+
+def zoo_direct(cfg, params, batch, steps, max_len, kernel_path, sampler):
+    """Prefill then `steps` decode steps on the card, tokens from
+    `sampler`: (tokens [B, steps + 1], prefill s, decode s)."""
+    import torch
+    from repro_torch.models import model as tm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = tm.init_cache(cfg, batch["tokens"].shape[0], max_len,
+                          torch.float32)
+    logits, cache = tm.prefill(params, batch, cfg, cache)
+    out = [sampler(logits[:, -1])]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = tm.decode_step(params, out[-1][:, None].to(
+            torch.int32), cfg, cache, kernel_path)
+        out.append(sampler(logits[:, -1]))
+    torch.cuda.synchronize()
+    return torch.stack(out, 1), t1 - t0, time.perf_counter() - t1
+
+
+def zoo_paths_equal(arch, dtype_name, kernel_run, ref_run, k_routes,
+                    r_routes, top_k) -> dict:
+    """Phase 37's line for one arch: the plain path fed the kernel path's
+    tokens (`ref_run` a PathSampler forced by `kernel_run`).  Logits are
+    held within the tolerance up to the first routing flip (a flip
+    changes that token's expert output, and through the cache the steps
+    after it); every flip must sit on a near tie."""
+    route_flips = (k_routes.flips_against(r_routes, top_k)
+                   if k_routes is not None else [])
+    first = min((f["call"] for f in route_flips), default=len(ref_run.diffs))
+    clean = max(ref_run.diffs[:first], default=0.0)
+    line = {"phase": "zoo_paths_equal", "arch": arch, "dtype": dtype_name,
+            "sampler_calls": ref_run.calls,
+            "max_rel_logit_diff": max(ref_run.diffs),
+            "max_rel_logit_diff_before_route_flip": clean,
+            "logit_rtol": ref_run.rtol, "token_flips": ref_run.flips,
+            "route_flips": route_flips, "router_tie_gap": ROUTER_TIE_GAP}
+    emit(line)
+    assert ref_run.calls == kernel_run.calls, (ref_run.calls,
+                                               kernel_run.calls)
+    assert clean <= ref_run.rtol, clean
+    assert all(f["ok"] for f in ref_run.flips if f["call"] < first), (
+        ref_run.flips)
+    assert all(f["gap"] < ROUTER_TIE_GAP for f in route_flips), route_flips
+    return line
+
+
+def zoo_phases(dev) -> dict:
+    """Phases 33-38: mixtral and llama4 (MoE), zamba2 (Mamba2 hybrid),
+    xlstm, phi-3-vision and whisper served at their published widths
+    through the decode kernel, each again through the plain version fed
+    the same tokens, and reduced configs held to the reference's tokens.
+    Returns the decode kernel's launches on each serve path."""
+    import torch
+    from repro_torch import configs, kernels
+    from repro_torch.models import model as tm
+    from repro_torch.models import moe
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    launches = {}
+
+    # ---- 33-35 (and 36's engine run of phi-3-vision): one serve per arch
+    # through the decode kernel, then the same through the plain version
+    # fed its tokens (37)
+    for phase, arch, depth, dt_name, prompts, max_len in ZOO_SERVES:
+        cfg = configs.get(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        dt = dtypes[dt_name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = tm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            SERVE_SEED), dtype=dt)              # device defaults to cuda
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = tm.param_count(params)
+        weight_bytes = n_params * torch.finfo(dt).bits // 8
+        routed = cfg.family == "moe"
+        runs = {}
+        for path in ("cuda", "ref"):
+            sampler = PathSampler(ZOO_LOGIT_RTOL[dt_name],
+                                  forced=runs.get("cuda", (None,))[0])
+            log = RouteLog(moe, sampler) if routed else None
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            with log or contextlib.nullcontext():
+                done, eng, prefill_s, decode_s = serve_run(
+                    cfg, params, prompts, dt, max_len, path, sampler)
+            n = kernels.launch_counts()["decode_attention"]
+            runs[path] = (sampler, log, done, eng.steps, prefill_s,
+                          decode_s, n, torch.cuda.max_memory_allocated())
+            del eng
+        sampler, log, done, steps, prefill_s, decode_s, n, peak = \
+            runs["cuda"]
+        launches[arch] = n
+        decoded = sum(len(r.out_tokens) - 1 for r in done)
+        emit({"phase": phase, "arch": arch, "n_layers": cfg.n_layers,
+              "published_layers": configs.get(arch).n_layers,
+              "d_model": cfg.d_model, "vocab": cfg.vocab,
+              "params": n_params, "weight_bytes": weight_bytes,
+              "dtype": dt_name, "slots": SERVE_SLOTS, "max_len": max_len,
+              "prompts": prompts, "max_new_tokens": SERVE_NEW,
+              "decode_steps": steps, "init_params_s": init_s,
+              "prefill_s": prefill_s, "decode_s": decode_s,
+              "decode_ms_per_step": 1e3 * decode_s / steps,
+              "decode_tokens": decoded,
+              "decode_tokens_per_s": decoded / decode_s,
+              "weight_bound_ms_per_step": 1e3 * weight_bytes / PEAK_BYTES_S,
+              "max_memory_allocated": peak, "decode_attention_launches": n,
+              "attention_layers": attention_layers(cfg),
+              "ref_path": {"prefill_s": runs["ref"][4],
+                           "decode_s": runs["ref"][5],
+                           "decode_attention_launches": runs["ref"][6]}})
+        assert len(done) == len(prompts)
+        assert all(len(r.out_tokens) == r.max_new_tokens for r in done)
+        assert steps == SERVE_STEPS == runs["ref"][3], steps
+        assert n == attention_layers(cfg) * steps, (n, attention_layers(cfg))
+        assert runs["ref"][6] == 0
+        zoo_paths_equal(arch, dt_name, sampler, runs["ref"][0], log,
+                        runs["ref"][1], cfg.top_k)
+        del params, runs, done, sampler, log
+        torch.cuda.empty_cache()
+
+    # ---- 36. whisper-small and phi-3-vision through prefill/decode_step
+    # with stub frontends (and 37 for each)
+    for arch, key, n_front, prompt, steps, max_len in ZOO_DIRECT:
+        cfg = configs.get(arch)
+        gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+        params = tm.init_params(cfg, gen)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (SERVE_SLOTS, prompt),
+                                         generator=gen, device=dev),
+                 key: torch.randn((SERVE_SLOTS, n_front, cfg.d_model),
+                                  generator=gen, device=dev)}
+        runs = {}
+        for path in ("cuda", "ref"):
+            sampler = PathSampler(LOGIT_RTOL,
+                                  forced=runs.get("cuda", (None,))[0])
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            toks, prefill_s, decode_s = zoo_direct(cfg, params, batch, steps,
+                                                   max_len, path, sampler)
+            runs[path] = (sampler, toks, prefill_s, decode_s,
+                          kernels.launch_counts()["decode_attention"],
+                          torch.cuda.max_memory_allocated())
+        sampler, toks, prefill_s, decode_s, n, peak = runs["cuda"]
+        launches[arch + "+" + key] = n
+        n_params = tm.param_count(params)
+        emit({"phase": "encdec", "arch": arch, "frontend": key,
+              "frontend_shape": list(batch[key].shape),
+              "n_layers": cfg.n_layers,
+              "n_encoder_layers": cfg.n_encoder_layers, "params": n_params,
+              "weight_bytes": 4 * n_params, "dtype": "float32",
+              "batch": SERVE_SLOTS, "prompt": prompt, "max_len": max_len,
+              "decode_steps": steps, "prefill_s": prefill_s,
+              "decode_s": decode_s, "decode_ms_per_step": 1e3 * decode_s
+              / steps, "decode_tokens_per_s": SERVE_SLOTS * steps / decode_s,
+              "weight_bound_ms_per_step": 1e3 * 4 * n_params / PEAK_BYTES_S,
+              "max_memory_allocated": peak, "decode_attention_launches": n,
+              "attention_layers": attention_layers(cfg),
+              "ref_path": {"prefill_s": runs["ref"][2],
+                           "decode_s": runs["ref"][3],
+                           "decode_attention_launches": runs["ref"][4]}})
+        assert toks.shape == (SERVE_SLOTS, steps + 1)
+        assert bool(((toks >= 0) & (toks < cfg.vocab)).all())
+        assert n == attention_layers(cfg) * steps > 0, n
+        assert runs["ref"][4] == 0
+        zoo_paths_equal(arch + "+" + key, "float32", sampler, runs["ref"][0],
+                        None, None, 0)
+        del params, runs, batch, sampler
+        torch.cuda.empty_cache()
+
+    # ---- 38. reduced configs held to the reference's greedy tokens
+    t0 = time.perf_counter()
+    got, held_launches = {}, {}
+    for arch in ZOO_HELD_ENGINE + ZOO_HELD_DIRECT:
+        before = kernels.launch_counts()["decode_attention"]
+        got[arch] = zoo_held_tokens(arch, dev)
+        held_launches[arch] = (kernels.launch_counts()["decode_attention"]
+                               - before)
+    equal = {a: got[a] == GOLDEN_ZOO_HELD[a] for a in got}
+    emit({"phase": "zoo_held", **ZOO_HELD, "archs": list(got),
+          "launches": held_launches, "equal": equal,
+          "wall_s": time.perf_counter() - t0})
+    for arch, n in held_launches.items():
+        cfg = zoo_held_cfg(configs, arch)
+        assert (n > 0) == (attention_layers(cfg) > 0), (arch, n)
+    assert all(equal.values()), {a: got[a] for a in got if not equal[a]}
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2964,6 +3433,7 @@ def main() -> int:
         tables=tables, wl=wl, tab7=tab7, wl7=wl7))
     resil = resiliency_phases(dev, dict(                 # phases 31-32
         card=smi_line, sm_max_mhz=sm_max_mhz))
+    zoo = zoo_phases(dev)                                # phases 33-38
 
     def tel_entry(kernel: str) -> dict:
         # the kernel's launches in phase 29: the q=19 tables' build, the
@@ -3035,7 +3505,7 @@ def main() -> int:
              source=src + "attn_decode.cu",
              replaces="src/repro/kernels/attn_decode.py:81",
              launches=launches_serve["decode_attention"], bound_by="bytes",
-             **report["decode_attention"]),
+             zoo={"launches": zoo}, **report["decode_attention"]),
     ]
     emit({"ecmp_choice": fig6["ecmp_choice"],
           "note": "plain PyTorch, as the reference's jnp; not a kernel"})

@@ -16,4 +16,8 @@
                  (``python -m repro_torch.bench.faults_sweep``)
 - telemetry_export: channel heatmap, perfetto trace and the telemetry's
                  cost (``python -m repro_torch.bench.telemetry_export``)
+- fig1_hops, fig5_moore, fig5c_bisection, table4_cost: the paper's
+                 host-side analyses (average hops, the Moore bound,
+                 bisection, cost and power), ``python -m
+                 repro_torch.bench.<name> [--full]``
 """

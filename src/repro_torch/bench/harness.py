@@ -46,7 +46,7 @@ from typing import Callable, Optional
 
 import torch
 
-__all__ = ["BenchEntry", "bench_callable", "peak_memory_bytes",
+__all__ = ["BenchEntry", "bench_callable", "peak_memory_bytes", "rows_main",
            "rss_hwm_bytes", "write_bench", "load_bench", "check_regression",
            "repo_stamp", "card_stamp"]
 
@@ -312,3 +312,35 @@ def check_regression(baseline: dict, entry_name: str, metric: str,
            f"baseline={base:.4g} ({rel:.2f}x, gate {factor}x) "
            f"{'OK' if ok else 'REGRESSION'}")
     return ok, msg
+
+
+def rows_main(suite: str, run: Callable[[bool], list], description: str,
+              argv=None) -> int:
+    """Command line of a host-side figure driver whose `run(fast)`
+    returns the reference driver's rows: ``[--full] [--out PATH]``.
+    Prints the card stamp, each row as one JSON line and a summary;
+    writes the rows and the wall seconds to `--out` (default
+    ``chiprun_out/<suite>_torch_<fast|full>.json``)."""
+    import argparse
+    from pathlib import Path
+    ap = argparse.ArgumentParser(description=description)
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    mode = "full" if args.full else "fast"
+    out = Path(args.out) if args.out else (
+        Path(__file__).resolve().parents[3] / "chiprun_out"
+        / f"{suite}_torch_{mode}.json")
+    print(card_stamp(), flush=True)
+    t0 = time.perf_counter()
+    rows = run(not args.full)
+    wall = time.perf_counter() - t0
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out, "w") as f:
+        json.dump({"suite": suite, "mode": mode, "stamp": repo_stamp(),
+                   "rows": rows, "wall_s": wall}, f, indent=1)
+    for row in rows:
+        print(json.dumps(row))
+    print(json.dumps({"rows": len(rows), "wall_s": wall, "out": str(out)}),
+          flush=True)
+    return 0

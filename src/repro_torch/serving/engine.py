@@ -2,8 +2,10 @@
 `repro.serving.engine`.
 
 Fixed B decode slots; finished sequences are refilled from the request
-queue; prefill runs per request and its cache is spliced into the
-batch cache's slot.  Every decode step runs the whole batch through
+queue; prefill runs per request and its cache -- every tensor whose
+first dimension is the batch: ring buffers, lengths, and the mamba /
+mLSTM / sLSTM states and the hybrid's shared ring -- is spliced into
+the batch cache's slot.  Every decode step runs the whole batch through
 `decode_step`, whose attention goes through the CUDA decode kernel on
 the card (`kernel_path="auto"`) or its plain version (`"ref"`).
 """

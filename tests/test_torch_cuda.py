@@ -170,6 +170,14 @@ DECODE_CASES = [
     (1, 2, 8, 128, 1024, None, None),
     (3, 1, 16, 80, 129, None, None),
     (2, 3, 2, 256, 1000, 50.0, (999, 1000)),
+    # the model zoo's other decode shapes: mixtral-8x22b (G = 6, the
+    # 4096-position window), llama4-maverick (G = 5), zamba2-7b's shared
+    # block (d = 112), phi-3-vision (d = 96), whisper-small's decoder
+    (4, 8, 6, 128, 4096, None, (4096, 1, 2049, 300)),
+    (4, 8, 5, 128, 1024, None, (512, 1, 300, 77)),
+    (4, 32, 1, 112, 1024, None, (1024, 1, 600, 150)),
+    (4, 32, 1, 96, 1024, None, (600, 1, 583, 1024)),
+    (4, 12, 1, 64, 448, None, (448, 1, 40, 200)),
 ]
 # (atol, rtol), as chip_smoke.py holds the kernel: float32 sums in
 # another order; bfloat16 one output rounding (at most one step, 2**-7 of
@@ -600,6 +608,55 @@ def test_serving_kernel_path_matches_plain_path(cuda_device):
         assert launched % cfg.n_layers == 0
         assert (launched > 0) == (path == "cuda")
     assert outs[0] == outs[1]
+
+
+ZOO = ["mixtral-8x22b", "llama4-maverick-400b-a17b", "zamba2-7b",
+       "xlstm-1.3b", "whisper-small", "phi-3-vision-4.2b", "gemma2-2b-scan"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ZOO)
+def test_zoo_decode_kernel_path_matches_plain_path(cuda_device, name):
+    """Each family, reduced, on the card: a 150-token prompt then three
+    decode steps through the decode kernel and through its plain version;
+    the logits agree within 1e-4 of the largest, and the kernel launches
+    once per attention layer (the hybrid's shared-attention sites; none
+    in xLSTM) per step."""
+    import dataclasses
+    from repro_torch.configs import get, reduced
+    from repro_torch.models import model as tm
+    scan = name.endswith("-scan")
+    cfg = reduced(get(name[:-len("-scan")] if scan else name))
+    cfg = dataclasses.replace(cfg, scan_layers=scan)
+    params = tm.params_from_numpy(tm.numpy_params(cfg, 0), cfg, cuda_device)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 153))).to(
+        cuda_device)
+    batch = dict(tokens=toks[:, :150])
+    if cfg.n_encoder_layers:
+        batch["frames"] = torch.randn((2, 24, cfg.d_model),
+                                      device=cuda_device)
+    if cfg.frontend == "vision_stub":
+        batch["patches"] = torch.randn((2, 8, cfg.d_model),
+                                       device=cuda_device)
+    n_attn = sum(s["kind"] == "attn" or bool(s.get("shared_attn"))
+                 for s in cfg.layer_kinds())
+    logits = {}
+    for path in ("cuda", "ref"):
+        cache = tm.init_cache(cfg, 2, 192, torch.float32, cuda_device)
+        _, cache = tm.prefill(params, batch, cfg, cache)
+        before = decode_attention_cuda.launches
+        out = []
+        for i in range(150, 153):
+            lg, cache = tm.decode_step(params, toks[:, i:i + 1], cfg, cache,
+                                       kernel_path=path)
+            out.append(lg)
+        torch.cuda.synchronize()
+        launched = decode_attention_cuda.launches - before
+        assert launched == (3 * n_attn if path == "cuda" else 0), launched
+        logits[path] = torch.stack(out)
+    scale = logits["ref"].abs().max()
+    assert ((logits["cuda"] - logits["ref"]).abs().max() / scale) < 1e-4
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
 """The port's serving engine (`repro_torch.serving.ServingEngine`, on the
 CPU) held against the LIVE reference engine (`repro.serving.
 ServingEngine`) with the same numpy weights and requests: equal greedy
-tokens for reduced gemma2-2b and h2o-danube-1.8b, with prompts longer
-than the 16-position window and slots that refill; plus slot
+tokens for reduced gemma2-2b and h2o-danube-1.8b (prompts longer than
+the 16-position window), zamba2-7b (Mamba2 states and the shared
+attention block's ring) and xlstm-1.3b (mLSTM and sLSTM states), with
+slots that refill and splice every recurrent state; plus slot
 bookkeeping, the single-sequence path, the enc-dec refusal and the
 refusal to run without a card unless asked for the CPU."""
 
@@ -37,7 +39,8 @@ def _requests(cls, vocab, seed, n=6):
                 max_new_tokens=2 + (5 * i) % 6) for i in range(n)]
 
 
-@pytest.fixture(scope="module", params=["gemma2-2b", "h2o-danube-1.8b"])
+@pytest.fixture(scope="module", params=["gemma2-2b", "h2o-danube-1.8b",
+                                        "zamba2-7b", "xlstm-1.3b"])
 def model(request):
     cfg = tcfgs.reduced(tcfgs.get(request.param), n_layers=3)
     jcfg = jcfgs.reduced(jcfgs.get(request.param), n_layers=3)

@@ -2,11 +2,16 @@
 """Where the time of the port's serving decode step goes, on one NVIDIA GPU.
 
     python3 tools/profile_torch_serve.py [--kernel-path auto|ref]
+        [--arch gemma2-2b|mixtral-8x22b|llama4-maverick-400b-a17b|
+                zamba2-7b|xlstm-1.3b|phi-3-vision-4.2b]
 
-Builds gemma2-2b at full width and depth with random float32 weights from
-a seeded generator, a `ServingEngine` of 4 slots and max_len 8192, and
-admits the first four prompts of `chip_smoke.py`'s serve phase (4500,
-2049, 1024 and 300 tokens).  Then runs the engine's decode step
+Builds the arch (default gemma2-2b) at full width with random weights
+from a seeded generator, at the depth, weight type, max_len and first
+four prompts of its `chip_smoke.py` serve (phases 13 and 33-36: gemma2-2b
+at full depth, float32, max_len 8192 and prompts of 4500, 2049, 1024 and
+300 tokens; mixtral at depth 4; llama4 at depth 2 in bfloat16), a
+`ServingEngine` of 4 slots, and admits the four prompts.  Then runs the
+engine's decode step
 (`decode_step`, greedy argmax, the tokens copied to the host) twice to
 warm up, 16 times timed and 16 times under `torch.profiler`, and prints
 one JSON line: wall time per step, device busy time per step (sum of
@@ -26,14 +31,26 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from torch_profile import profile_run, union_us  # noqa: E402  (tools/)
 
 PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
-PROMPTS = (4500, 2049, 1024, 300)
 STEPS = 16
+# arch -> (layers or None = published depth, weight dtype, max_len,
+# prompts): chip_smoke.py's serves
+ARCHS = {
+    "gemma2-2b": (None, "float32", 8192, (4500, 2049, 1024, 300)),
+    "mixtral-8x22b": (4, "float32", 8192, (4500, 2049, 1024, 300)),
+    "llama4-maverick-400b-a17b": (2, "bfloat16", 1024, (512, 300, 129, 77)),
+    "zamba2-7b": (None, "float32", 2048, (1024, 300, 150, 77)),
+    "xlstm-1.3b": (None, "float32", 512, (300, 150, 77, 40)),
+    "phi-3-vision-4.2b": (None, "float32", 2048, (1024, 300, 150, 77)),
+}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel-path", default="auto")
+    ap.add_argument("--arch", default="gemma2-2b", choices=sorted(ARCHS))
     args = ap.parse_args()
+
+    import dataclasses
 
     import numpy as np
     import torch
@@ -47,13 +64,19 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    cfg = configs.get("gemma2-2b")
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
-    weight_bytes = 4 * param_count(params)
-    eng = ServingEngine(params, cfg, batch_slots=len(PROMPTS), max_len=8192,
+    depth, dt_name, max_len, prompts = ARCHS[args.arch]
+    cfg = configs.get(args.arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    dt = getattr(torch, dt_name)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         dtype=dt)
+    weight_bytes = param_count(params) * torch.finfo(dt).bits // 8
+    eng = ServingEngine(params, cfg, batch_slots=len(prompts),
+                        max_len=max_len, dtype=dt,
                         kernel_path=args.kernel_path)
     rng = np.random.default_rng(0)
-    for slot, n in enumerate(PROMPTS):
+    for slot, n in enumerate(prompts):
         eng._admit(slot, Request(rid=slot, prompt=rng.integers(
             0, cfg.vocab, n, dtype=np.int32), max_new_tokens=10_000))
 
@@ -79,8 +102,9 @@ def main() -> int:
             if "decode_split_kernel" in k or "decode_merge_kernel" in k]
     split_us = sum(d for d, _, k in rows if "decode_split_kernel" in k)
     print(json.dumps({
-        "arch": cfg.name, "n_layers": cfg.n_layers, "slots": len(PROMPTS),
-        "prompts": PROMPTS, "kernel_path": args.kernel_path, "steps": STEPS,
+        "arch": cfg.name, "n_layers": cfg.n_layers, "dtype": dt_name,
+        "slots": len(prompts), "prompts": prompts,
+        "kernel_path": args.kernel_path, "steps": STEPS,
         **summary,
         "decode_attention_ms_per_step": union_us(attn) / 1e3 / STEPS,
         "decode_split_kernel_ms_per_step": split_us / 1e3 / STEPS,
