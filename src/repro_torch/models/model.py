@@ -18,19 +18,23 @@ points:
   params_from_numpy(tree, cfg, device, dtype)  -> params
   forward(params, batch, cfg)                  -> logits
   forward_hidden(params, batch, cfg)           -> final hidden states
+  loss_fn(params, batch, cfg)                  -> scalar (seq-chunked CE)
   init_cache(cfg, batch, max_len, dtype, device) -> cache
   prefill(params, batch, cfg, cache)           -> (last logits, cache)
   decode_step(params, tokens, cfg, cache)      -> (logits, cache)
 
-batch: tokens [B, S] int (+ 'frames' [B, F, D] for the audio encoder,
-'patches' [B, P, D] for the vision stub).  The training loss
-(`loss_fn`) is not ported yet and raises.
+batch: tokens [B, S] int (+ 'labels' for training, 'frames' [B, F, D]
+for the audio encoder, 'patches' [B, P, D] for the vision stub).
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
 from .layers import (attention_block, flash_attention, gated_mlp, rms_norm,
@@ -195,7 +199,8 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None,
                       dtype=torch.float32) -> dict:
     """The reference's parameter tree (numpy arrays, nested keys as in
     `repro.models.model.init_params`) -> the port's parameters on
-    `device`; raises on a missing leaf or a shape mismatch."""
+    `device`, copies (the optimizer writes parameters in place); raises
+    on a missing leaf or a shape mismatch."""
     from .. import resolve_device
     dev = resolve_device(device)
     shapes = param_shapes(cfg)
@@ -208,8 +213,7 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None,
         if tuple(arr.shape) != tuple(shape):
             raise ValueError(f"params{list(path)}: shape {arr.shape}, "
                              f"expected {shape}")
-        _set(out, path, torch.as_tensor(np.ascontiguousarray(arr),
-                                        dtype=dtype, device=dev))
+        _set(out, path, torch.tensor(arr, dtype=dtype, device=dev))
     return out
 
 
@@ -347,7 +351,12 @@ def _embed_inputs(params, batch, cfg: ModelConfig):
 def forward_hidden(params, batch, cfg: ModelConfig,
                    collect_stash: bool = False):
     """Embeddings -> all decoder layers -> final norm.  In the scan
-    layout the loop runs over the units' stacked parameters.
+    layout the loop runs over the units' stacked parameters; when
+    autograd records (grad mode on and a parameter that requires grad)
+    each unit runs under a selective checkpoint that keeps the matrix
+    products' outputs and recomputes the rest, the reference's
+    `jax.checkpoint(unit, policy=dots_saveable)`.  Serving (no parameter
+    requires grad) dispatches the plain loop's operations.
     Returns (hidden [B, S_total, D], stashes | None, n_front)."""
     x, n_front = _embed_inputs(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None]
@@ -355,16 +364,42 @@ def forward_hidden(params, batch, cfg: ModelConfig,
     if cfg.n_encoder_layers:
         enc_out = _run_encoder(params, batch["frames"], cfg)
     shared_p = params.get("shared_attn")
+    specs = cfg.layer_kinds()
+    first = 0
+    if (_use_scan(cfg) and not collect_stash and torch.is_grad_enabled()
+            and any(leaf.requires_grad for _, leaf in _leaves(params))):
+        P, n_units, _ = cfg.scan_split()
+
+        def unit(x, u):
+            for j in range(P):
+                x, _ = _decoder_layer_full(
+                    x, layer_params_at(params, cfg, u * P + j), specs[j],
+                    cfg, positions, shared_p=shared_p)
+            return x
+
+        for u in range(n_units):
+            x = checkpoint(unit, x, u, use_reentrant=False,
+                           context_fn=_dots_saveable)
+        first = n_units * P
     stashes = []
-    for i, spec in enumerate(cfg.layer_kinds()):
+    for i in range(first, cfg.n_layers):
         cross_p = params["cross"][i] if cfg.n_encoder_layers else None
         x, stash = _decoder_layer_full(x, layer_params_at(params, cfg, i),
-                                       spec, cfg, positions,
+                                       specs[i], cfg, positions,
                                        enc_out=enc_out, cross_p=cross_p,
                                        shared_p=shared_p)
         stashes.append(stash)
     x = rms_norm(x, params["final_norm"])
     return x, (stashes if collect_stash else None), n_front
+
+
+def _dots_saveable():
+    """Selective-checkpoint contexts that save the outputs of the matrix
+    products (`jax.checkpoint_policies.dots_saveable`) and recompute
+    every other operation in the backward pass."""
+    return create_selective_checkpoint_contexts(
+        [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default])
 
 
 def _unembed_matrix(params, cfg: ModelConfig):
@@ -379,11 +414,37 @@ def forward(params, batch, cfg: ModelConfig):
 
 
 def loss_fn(params, batch, cfg: ModelConfig):
-    """The training loss (the reference's sequence-chunked cross
-    entropy): not ported yet."""
-    raise NotImplementedError(
-        "loss_fn (training) is not ported to repro_torch yet "
-        "(ROADMAP Queue 1 #12)")
+    """Next-token cross entropy over the tokens (the frontend's positions
+    dropped; `batch["labels"]` if given, else the tokens), the unembed
+    and log-softmax run over sequence chunks of `cfg.loss_chunk` (and a
+    remainder chunk): each chunk's float32 logits [B, chunk, vocab] are
+    recomputed in the backward pass (a checkpoint per chunk), so only
+    one chunk's logits live at a time.  Returns the mean over B (S - 1)
+    positions, a float32 scalar."""
+    x, _, n_front = forward_hidden(params, batch, cfg)
+    x = x[:, n_front:]
+    labels = batch.get("labels", batch["tokens"])
+    xs = x[:, :-1]
+    tgt = labels[:, 1:].long()
+    B, Sm1, _ = xs.shape
+    unembed = _unembed_matrix(params, cfg)
+
+    def chunk_nll(xc, tc):
+        logits = xc @ unembed.to(xc.dtype)
+        logits = softcap(logits, cfg.final_softcap).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, tc[..., None])[..., 0]
+        return (lse - picked).sum()
+
+    if torch.is_grad_enabled():
+        nll = functools.partial(checkpoint, chunk_nll, use_reentrant=False)
+    else:
+        nll = chunk_nll
+    chunk = min(cfg.loss_chunk, Sm1)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, Sm1, chunk):
+        total = total + nll(xs[:, c0:c0 + chunk], tgt[:, c0:c0 + chunk])
+    return total / (B * Sm1)
 
 
 # ================================================================ serving ==

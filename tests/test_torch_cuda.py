@@ -1062,3 +1062,47 @@ def test_telemetry_kernel_path_matches_plain_path(cuda_device, mode):
     for f, v in vars(off).items():
         if f != "telemetry":
             assert np.array_equal(v, getattr(runs[0], f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan", [False, True])
+def test_train_step_on_the_card_matches_the_cpu(cuda_device, scan):
+    """One training step of reduced gemma2-2b (flat, and the scan layout
+    whose units run under the selective checkpoint) on the card and on
+    the CPU from the same numpy weights and batch: the loss and
+    the global norm within 1e-4 relative; every parameter within
+    (2e-5, 2e-6) except the elements whose CPU gradient is below 1e-7,
+    whose one Adam step follows the gradient's sign (counted)."""
+    import dataclasses
+    from repro_torch.configs import get, reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.model import (_leaves, _set, loss_fn,
+                                          numpy_params, params_from_numpy)
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import TrainConfig, make_train_step
+    cfg = dataclasses.replace(reduced(get("gemma2-2b")), scan_layers=scan)
+    ocfg = AdamWConfig(lr_peak=1e-3, warmup_steps=2)
+    tree = numpy_params(cfg, 0)
+    # the CPU gradient, for the sign-sensitive elements
+    params = params_from_numpy(tree, cfg, "cpu")
+    batch = SyntheticLM(cfg.vocab, 32, 4, seed=3, device="cpu").batch_at(0)
+    for path, leaf in _leaves(params):
+        _set(params, path, leaf.requires_grad_(True))
+    grads = torch.autograd.grad(loss_fn(params, batch, cfg),
+                                [leaf for _, leaf in _leaves(params)])
+    out = {}
+    for dev in ("cpu", cuda_device):
+        params = params_from_numpy(tree, cfg, dev)
+        batch = SyntheticLM(cfg.vocab, 32, 4, seed=3, device=dev).batch_at(0)
+        step = make_train_step(cfg, ocfg, TrainConfig())
+        out[str(dev)] = step(params, init_opt_state(params, ocfg), batch)
+    (pc, _, mc), (pg, _, mg) = out["cpu"], out[str(cuda_device)]
+    for k in ("loss", "grad_norm"):
+        assert abs(mg[k].item() / mc[k].item() - 1) < 1e-4, k
+    skipped = 0
+    for (path, a), (_, b), g in zip(_leaves(pc), _leaves(pg), grads):
+        keep = g.abs() >= 1e-7
+        skipped += int((~keep).sum())
+        np.testing.assert_allclose(b.cpu()[keep].numpy(), a[keep].numpy(),
+                                   rtol=2e-5, atol=2e-6, err_msg=str(path))
+    assert skipped < 1e-3 * sum(a.numel() for _, a in _leaves(pc))

@@ -82,15 +82,6 @@ def test_param_shapes_equal_the_reference(name):
         assert tm.param_shapes(cfg) == jm.param_shapes(jcfg)
 
 
-def test_loss_fn_waits_for_training():
-    """Training (the loss) is the next slice: it refuses, naming it."""
-    cfg = tcfgs.reduced(tcfgs.get("gemma2-2b"), n_layers=2)
-    params = tm.params_from_numpy(tm.numpy_params(cfg, 0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #12"):
-        tm.loss_fn(params, dict(tokens=torch.zeros((1, 4),
-                                                   dtype=torch.int32)), cfg)
-
-
 def test_full_gemma2_param_count():
     n = sum(int(np.prod(s)) for _, s in
             tm._leaves(tm.param_shapes(tcfgs.get("gemma2-2b"))))
