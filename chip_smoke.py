@@ -272,7 +272,29 @@ Phases, one JSON line each; any failure exits non-zero:
     float32 and with int8 moments: losses within 1e-4 relative of the
     reference's (GOLDEN_TRAIN_HELD; int8: the first three), 4 steps
     straight equal to 2 + resume + 2 within the reference's tolerance,
-    and a preempted run's latest checkpoint at step 1.
+    and a preempted run's latest checkpoint at step 1;
+41. mesh_train: phase 39's float32 run again on a NCCL world of one
+    rank over a (1, 1) ("data", "model") mesh, the parameters
+    distributed by `shard_params(fsdp=True)`: every parameter and moment
+    a DTensor on the card, losses within MESH_LOSS_RTOL of phase 39's,
+    ms per step and peak memory beside phase 39's, the collectives of
+    one more step counted by CommDebugMode, no kernel launched (the
+    card is one H100: multi-rank runs are the CPU tests' gloo worlds);
+42. mesh_collectives: on that world, the four ring collectives and
+    `compressed_psum` on card tensors equal to their one-rank meaning
+    (with one rank each ring function returns its input and sends
+    nothing: the ring steps run only in the CPU tests' gloo worlds),
+    and a reduced gemma2-2b's sharded parameters saved and restored onto
+    the (1, 1) mesh, equal;
+43. dryrun: `python -m repro_torch.launch.dryrun` for gemma2-2b train_4k
+    and decode_32k on 16x16 and mixtral-8x22b train_4k on 2x16x16
+    (moe_groups 32), child processes on fake worlds of 256 and 512 ranks
+    with fake tensors (started after phase 38, beside the device-bound
+    phases 39-42): per-rank FLOPs, bytes, collective bytes by kind,
+    peak bytes, the H100 roofline terms, useful_fraction and trace
+    seconds, one line per cell; and, on this host's torch, eight ranks'
+    FLOPs of a fake (2, 4) trace of reduced gemma2-2b equal to a (1, 1)
+    trace's (the counter sees local shapes).
 
 Then a line {"kernels": [...]} with each kernel's launches on its main
 path (the open loop's for the simulator's three kernels, the serve
@@ -292,7 +314,9 @@ and times at L = 1 and L = 5; the three simulator rows carry, under
 UGAL-L job mix), under "telemetry" their launches in phase 29 (the
 build and the two telemetry runs), and under "resiliency" their
 launches in each phase-31 sweep (min-plus also its batched squaring's
-times and bounds at the three fabrics' [10, n, n]); and the last line
+times and bounds at the three fabrics' [10, n, n]); every row carries,
+under "mesh_train", its launches in phase 41 (0: the training path
+reaches no kernel); and the last line
 {"ok": true, "device": {...}}.  Without CUDA, or without the repository
 around it, it fails before printing any result.
 """
@@ -3228,6 +3252,247 @@ def train_phases(dev, card: str) -> dict:
     return out
 
 
+# Phases 41-43: the mesh layers.  The card is one H100 and NCCL refuses
+# two ranks on one GPU, so phase 41 trains phase 39's model on a world of
+# one rank over a (1, 1) ("data", "model") mesh (every parameter and
+# moment a DTensor), phase 42 runs the ring collectives and the EF-int8
+# compression on that world (where, with one rank, each ring function
+# returns its input without a send: the ring steps run only in the CPU
+# tests' gloo worlds), and phase 43 runs the dry run of three cells on
+# fake worlds of 256 and 512 ranks (fake tensors: no device memory) in
+# child processes, and a fourth child that checks, on this host's
+# torch, that the counter counts local shapes only.  The children start
+# after the zoo's host-bound phases (33-38) and trace beside phases
+# 39-42, whose steps keep the card busy (the train step idles 1.3%,
+# PERF.md section 5): their ms per step are compared with a run that
+# starts the children after phase 42 (PERF.md section 6).
+MESH_LOSS_RTOL = 1e-5
+DRYRUN_CELLS = [("gemma2-2b", "train_4k", False),
+                ("gemma2-2b", "decode_32k", False),
+                ("mixtral-8x22b", "train_4k", True)]
+DRYRUN_TIMEOUT_S = 240
+# reduced gemma2-2b train and decode at S=1,024 on a fake (2, 4) world
+# and on a fake world of one rank: eight ranks' FLOPs must equal the
+# global trace's (tests/test_torch_dryrun.py holds the same on the CPU)
+DRYRUN_LOCAL_CHECK = """
+import json, sys
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.configs import ShapeSpec, get, reduced
+from repro_torch.launch.dryrun import run_cell
+flops = {}
+for shape in [(2, 4), (1, 1)]:
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=shape[0] * shape[1])
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+    flops["x".join(map(str, shape))] = [run_cell(
+        "gemma2-2b", "reduced_" + kind, False, device="cpu", mesh=mesh,
+        cfg=reduced(get("gemma2-2b")),
+        shape=ShapeSpec("reduced_" + kind, 1024, 8, kind))[
+            "hlo_flops_per_dev"] for kind in ("train", "decode")]
+    dist.destroy_process_group()
+json.dump(flops, open(sys.argv[1], "w"))
+"""
+
+
+def start_dryrun() -> list:
+    """Phase 43's child processes, one per cell and the local-shape
+    check, all at once; each one's output goes to a log file beside its
+    result (build/dryrun/)."""
+    out_dir = os.path.join(ROOT, "build", "dryrun")
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmds = []
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        out = os.path.join(out_dir, f"{arch}_{shape}_"
+                           f"{'2x16x16' if multi_pod else '16x16'}.json")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", out]
+        if multi_pod:
+            cmd.append("--multi-pod")
+        cmds.append((out, cmd))
+    out = os.path.join(out_dir, "local_shapes.json")
+    cmds.append((out, [sys.executable, "-c", DRYRUN_LOCAL_CHECK, out]))
+    procs = []
+    for out, cmd in cmds:
+        if os.path.exists(out):
+            os.unlink(out)
+        with open(out + ".log", "w") as log:
+            procs.append((out, time.perf_counter(), subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=log,
+                stderr=subprocess.STDOUT)))
+    return procs
+
+
+def stop_dryrun(procs) -> None:
+    for _, _, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def mesh_phases(dev, card: str, train39: dict, dryrun: list) -> dict:
+    """Phases 41-43 (see the module's docstring).  Returns the kernel
+    launches of phase 41's run."""
+    import math
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch import configs, kernels
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import (collective_matmul_ag, param_specs,
+                                  ring_all_gather, ring_all_reduce,
+                                  ring_reduce_scatter, shard_params)
+    from repro_torch.dist.sharding import is_dtensor, tree_items
+    from repro_torch.launch.faults import FaultMonitor
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as tm
+    from repro_torch.optim import AdamWConfig, compressed_psum
+    from repro_torch.optim.compression import _quant
+    from repro_torch.train import TrainConfig, make_train_step, train
+
+    # ---- 41. phase 39's float32 run on DTensor parameters
+    t = TRAIN
+    mesh = make_local_mesh()
+    cfg = dataclasses.replace(configs.get(t["arch"]), scan_layers=True)
+    data = SyntheticLM(cfg.vocab, t["seq"], t["batch"], seed=t["data_seed"])
+    opt = AdamWConfig(lr_peak=t["lr_peak"], warmup_steps=t["warmup_steps"],
+                      total_steps=t["total_steps"])
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt_state, hist = train(
+        cfg, opt, TrainConfig(log_every=1), data, shard_params(
+            tm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+                SERVE_SEED)), mesh, fsdp=True), t["steps"],
+        monitor=FaultMonitor())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = kernels.launch_counts()
+    losses = [h["loss"] for h in hist]
+    step_s = [h["dt"] for h in hist]
+    rel = [abs(a / b - 1) for a, b in zip(losses, train39["losses"])]
+    states = dict(p=params, m=opt_state["m"], v=opt_state["v"])
+    on_card = all(is_dtensor(x) and x.device.type == "cuda"
+                  for _, x in tree_items(states))
+    # the collectives of one more step, counted by CommDebugMode (not
+    # timed: the mode sees every operation)
+    comm = CommDebugMode()
+    with comm:
+        make_train_step(cfg, opt, TrainConfig())(params, opt_state,
+                                                 data.batch_at(t["steps"]))
+    comm_counts = {str(k): v for k, v in comm.get_comm_counts().items()}
+    med = statistics.median(step_s[1:])
+    emit({"phase": "mesh_train", "arch": t["arch"], "mesh": [1, 1],
+          "backend": dist.get_backend(), "world": dist.get_world_size(),
+          "fsdp": True, "moments": "float32", "batch": t["batch"],
+          "seq": t["seq"], "steps": t["steps"], "losses": losses,
+          "phase39_losses": train39["losses"], "rel_diff": rel,
+          "rtol": MESH_LOSS_RTOL, "step_s": step_s, "ms_per_step": 1e3 * med,
+          "phase39_ms_per_step": train39["ms_per_step"],
+          "max_memory_allocated": peak,
+          "phase39_max_memory_allocated": train39["max_memory_allocated"],
+          "all_dtensor_on_cuda": on_card, "collectives_one_step": comm_counts,
+          "kernel_launches": launches, "wall_s": wall, "card": card})
+    del params, opt_state, states
+    torch.cuda.empty_cache()
+    assert on_card
+    assert max(rel) < MESH_LOSS_RTOL, rel
+    assert not any(launches.values()), launches
+
+    # ---- 42. the ring collectives, EF-int8 and elastic restore on the
+    # card's world of one rank: each equal to its one-rank meaning
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    x = torch.randn(2304 * 9216, device=dev, generator=g)
+    xs = torch.randn(2048, 2304, device=dev, generator=g)
+    ws = torch.randn(2304, 9216, device=dev, generator=g)
+    checks = {
+        "ring_all_reduce": exact_diff(ring_all_reduce(x), x),
+        "ring_reduce_scatter": exact_diff(ring_reduce_scatter(x), x),
+        "ring_all_gather": exact_diff(ring_all_gather(x), x[None]),
+        "collective_matmul_ag": exact_diff(collective_matmul_ag(xs, ws),
+                                           xs @ ws),
+    }
+    out, err = compressed_psum(x)
+    q, s = _quant(x)
+    sent = q.to(torch.float32) * s
+    q2, s2 = _quant(sent)
+    checks["compressed_psum"] = exact_diff(out, q2.to(torch.float32) * s2)
+    checks["compressed_psum_residual"] = exact_diff(
+        err, (x - sent) + (sent - q2.to(torch.float32) * s2))
+    small = dataclasses.replace(configs.reduced(configs.get(t["arch"])),
+                                scan_layers=True)
+    plain = tm.params_from_numpy(tm.numpy_params(small, 0), small)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        save_checkpoint(d, 1, shard_params(plain, mesh, fsdp=True))
+        back = restore_checkpoint(d, 1, plain, mesh=mesh,
+                                  specs=param_specs(plain, mesh, fsdp=True))
+    restored = dict(tree_items(back))
+    checks["restore"] = max(exact_diff(restored[p].full_tensor(), w)
+                            for p, w in tree_items(plain))
+    restored_dt = all(is_dtensor(w) and w.device_mesh is mesh
+                      for w in restored.values())
+    emit({"phase": "mesh_collectives", "world": dist.get_world_size(),
+          "backend": dist.get_backend(), "max_abs_diff": checks,
+          "ring_elems": x.numel(), "matmul": [list(xs.shape), list(ws.shape)],
+          "restore_leaves": len(restored), "restored_dtensors": restored_dt,
+          "wall_s": time.perf_counter() - t0})
+    assert restored_dt
+    dist.destroy_process_group()
+
+    # ---- 43. the dry run's three cells (child processes started before
+    # phase 39), per rank, with the H100 roofline terms, and the
+    # local-shape check
+    t0 = time.perf_counter()
+    rows = []
+    for out_path, started, proc in dryrun:
+        try:
+            proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S - (
+                time.perf_counter() - started)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        if proc.returncode != 0:
+            with open(out_path + ".log") as f:
+                raise AssertionError(f"dryrun {out_path}: rc "
+                                     f"{proc.returncode}\n"
+                                     f"{f.read()[-3000:]}")
+        elapsed = time.perf_counter() - started
+        with open(out_path) as f:
+            got = json.load(f)
+        if isinstance(got, dict):                   # the local-shape check
+            local = got
+            continue
+        (row,) = got
+        row = {"phase": "dryrun", **row, "process_s": elapsed, "card": card}
+        emit(row)
+        rows.append(row)
+    emit({"phase": "dryrun_local_shapes", "flops_2x4": local["2x4"],
+          "flops_1x1": local["1x1"], "torch": torch.__version__,
+          "wall_s": time.perf_counter() - t0})
+    assert [8 * f for f in local["2x4"]] == local["1x1"], local
+    for row in rows:
+        assert row["status"] == "ok"
+        for k in ("hlo_flops_per_dev", "hlo_bytes_per_dev",
+                  "coll_bytes_per_dev", "peak_bytes_per_dev"):
+            assert math.isfinite(row[k]) and row[k] > 0, (k, row[k])
+    assert [(r["arch"], r["shape"], r["chips"]) for r in rows] == [
+        ("gemma2-2b", "train_4k", 256), ("gemma2-2b", "decode_32k", 256),
+        ("mixtral-8x22b", "train_4k", 512)]
+    assert rows[2]["moe_groups"] == 32
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3686,7 +3951,13 @@ def main() -> int:
     resil = resiliency_phases(dev, dict(                 # phases 31-32
         card=smi_line, sm_max_mhz=sm_max_mhz))
     zoo = zoo_phases(dev)                                # phases 33-38
-    train_phases(dev, smi_line)                          # phases 39-40
+    dryrun = start_dryrun()                              # phase 43, started
+    try:
+        train39 = train_phases(dev, smi_line)            # phases 39-40
+        launches_mesh = mesh_phases(dev, smi_line,       # phases 41-43
+                                    train39["float32"], dryrun)
+    finally:
+        stop_dryrun(dryrun)
 
     def tel_entry(kernel: str) -> dict:
         # the kernel's launches in phase 29: the q=19 tables' build, the
@@ -3735,7 +4006,9 @@ def main() -> int:
              launches_closed_loop=launches["minplus"], bound_by="operations",
              library_ms=None, fig6=fig6_entry("minplus", "minplus"),
              jobs=jobs_entry("minplus"), telemetry=tel_entry("minplus"),
-             resiliency=res_entry("minplus"), **report["minplus"]),
+             resiliency=res_entry("minplus"),
+             mesh_train={"launches": launches_mesh["minplus"]},
+             **report["minplus"]),
         dict(name="alloc_rounds", route="cuda", source=src + "alloc.cu",
              replaces="src/repro/kernels/alloc.py:77",
              launches=launches_open["alloc_rounds"],
@@ -3745,7 +4018,9 @@ def main() -> int:
              sweep=sweep_entry("alloc_rounds", "alloc_rounds"),
              jobs=jobs_entry("alloc_rounds"),
              telemetry=tel_entry("alloc_rounds"),
-             resiliency=res_entry("alloc_rounds"), **report["alloc_rounds"]),
+             resiliency=res_entry("alloc_rounds"),
+             mesh_train={"launches": launches_mesh["alloc_rounds"]},
+             **report["alloc_rounds"]),
         dict(name="ugal_select", route="cuda", source=src + "ugal.cu",
              replaces="src/repro/kernels/alloc.py:170",
              launches=launches_open["ugal_route"],
@@ -3753,12 +4028,16 @@ def main() -> int:
              library_ms=None, fig6=fig6_entry("ugal_route", "ugal_select"),
              sweep=sweep_entry("ugal_route", "ugal_select"),
              jobs=jobs_entry("ugal_route"), telemetry=tel_entry("ugal_route"),
-             resiliency=res_entry("ugal_route"), **report["ugal_select"]),
+             resiliency=res_entry("ugal_route"),
+             mesh_train={"launches": launches_mesh["ugal_route"]},
+             **report["ugal_select"]),
         dict(name="decode_attention", route="cuda",
              source=src + "attn_decode.cu",
              replaces="src/repro/kernels/attn_decode.py:81",
              launches=launches_serve["decode_attention"], bound_by="bytes",
-             zoo={"launches": zoo}, **report["decode_attention"]),
+             zoo={"launches": zoo},
+             mesh_train={"launches": launches_mesh["decode_attention"]},
+             **report["decode_attention"]),
     ]
     emit({"ecmp_choice": fig6["ecmp_choice"],
           "note": "plain PyTorch, as the reference's jnp; not a kernel"})

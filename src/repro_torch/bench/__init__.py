@@ -1,7 +1,8 @@
 """Benchmark harness and drivers of the port, ported from `repro.bench`.
 
-- harness:       timing (CUDA events on the card), peak device memory and
-                 the BENCH_*.json schema
+- harness:       timing (CUDA events on the card), peak device memory,
+                 the BENCH_*.json schema and the kernels' build cache
+                 (`enable_compilation_cache`)
 - fig6:          the Fig 6 driver, one lane-batched sweep per curve
                  (``python -m repro_torch.bench.fig6``)
 - sweep_profile: an L-lane sweep against L sequential runs under the
@@ -21,3 +22,12 @@
                  bisection, cost and power), ``python -m
                  repro_torch.bench.<name> [--full]``
 """
+
+from .harness import (BenchEntry, bench_callable, check_regression,
+                      enable_compilation_cache, load_bench,
+                      peak_memory_bytes, repo_stamp, rss_hwm_bytes,
+                      write_bench)
+
+__all__ = ["BenchEntry", "bench_callable", "check_regression",
+           "enable_compilation_cache", "load_bench", "peak_memory_bytes",
+           "repo_stamp", "rss_hwm_bytes", "write_bench"]

@@ -28,10 +28,18 @@ Schema (``BENCH_*.json``)::
                             "peak_mem_bytes": .., "mem_probe": "..",
                             "meta": {...}}}}
 
+- `enable_compilation_cache` is the counterpart of JAX's persistent
+  compilation cache: it points the kernels' build directory
+  (`repro_torch.kernels._cuda.BUILD_DIR`) at ``$REPRO_CACHE_DIR`` and
+  reports it ``off`` (unset), ``cold`` (no library built there yet) or
+  ``warm`` (built libraries present: a first launch loads one instead
+  of running ``nvcc``), so wall times can tell a build from a load.
+
 `check_regression` compares one metric of one entry between a baseline
 file and fresh numbers with a multiplicative tolerance.  The
-reference's `enable_compilation_cache` and `lowering_breakdown` are
-XLA-only and have no counterpart here (ROADMAP Queue 1 #13).
+reference's `lowering_breakdown` (trace and lowering against XLA
+compile seconds of a jitted call) has no counterpart: the port traces
+and lowers nothing before a call runs, so there is no split to report.
 """
 
 from __future__ import annotations
@@ -48,7 +56,7 @@ import torch
 
 __all__ = ["BenchEntry", "bench_callable", "peak_memory_bytes", "rows_main",
            "rss_hwm_bytes", "write_bench", "load_bench", "check_regression",
-           "repo_stamp", "card_stamp"]
+           "repo_stamp", "card_stamp", "enable_compilation_cache"]
 
 SCHEMA_VERSION = 1
 
@@ -93,6 +101,31 @@ def repo_stamp(telemetry: bool = False) -> dict:
         _STAMP_CACHE["sha"] = sha
     return {"git_sha": _STAMP_CACHE["sha"], "torch_version": torch.__version__,
             "card": card_stamp(), "telemetry": bool(telemetry)}
+
+
+def enable_compilation_cache() -> tuple:
+    """Point the kernels' build directory at ``$REPRO_CACHE_DIR``.
+
+    Returns ``(state, cache_dir)`` where state is:
+      - ``"off"``   -- env var unset, nothing changed;
+      - ``"cold"``  -- no kernel library built there yet (the first
+        launch of each kernel runs ``nvcc`` into it);
+      - ``"warm"``  -- libraries present (a launch whose source and
+        flags are unchanged loads its library instead of building).
+
+    Call it before the first kernel launch of the process."""
+    cache_dir = os.environ.get("REPRO_CACHE_DIR", "")
+    if not cache_dir:
+        return "off", None
+    from pathlib import Path
+
+    from ..kernels import _cuda
+
+    os.makedirs(cache_dir, exist_ok=True)
+    state = "warm" if any(name.endswith(".so")
+                          for name in os.listdir(cache_dir)) else "cold"
+    _cuda.BUILD_DIR = Path(cache_dir)
+    return state, cache_dir
 
 
 @dataclasses.dataclass

@@ -11,9 +11,15 @@ files of one package restore in the other.
   its memory with `.numpy()`, and the next optimizer step writes the
   parameters in place.
 - restore_checkpoint: rebuilds `like_tree`'s structure, each array cast
-  to its like-leaf's dtype and put on its device (or on `device`).  The
-  reference's `mesh`/`specs` re-sharding waits for the mesh layers
-  (ROADMAP Queue 1 #13).
+  to its like-leaf's dtype and put on its device (or on `device`);
+  `mesh`/`specs` may describe a DIFFERENT mesh shape than the one that
+  saved: every leaf is then distributed as a DTensor with its spec's
+  placements (elastic restore: the file holds global arrays, so
+  re-sharding is a plain relayout, as in the reference).
+
+DTensor leaves are saved as their full tensors: every rank gathers
+(``full_tensor``, a collective all ranks must enter) and rank 0 alone
+writes.  The npz format is the same either way.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..dist.sharding import (distribute_like, is_dtensor, to_placements,
+                             tree_items)
 from ..models.model import _leaves, _map_shapes, _set
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step"]
@@ -38,17 +46,32 @@ def _key(path) -> str:
 
 
 def _flatten(tree) -> dict:
-    """{path key: host numpy copy}, copied now."""
-    return {_key(path): leaf.detach().to("cpu", copy=True).numpy()
-            for path, leaf in _leaves(tree)}
+    """{path key: host numpy copy}, copied now (a DTensor's full
+    tensor)."""
+    def host(leaf):
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
+        return leaf.detach().to("cpu", copy=True).numpy()
+    return {_key(path): host(leaf) for path, leaf in _leaves(tree)}
+
+
+def _writes(tree) -> bool:
+    """False on the ranks other than 0 of a tree of DTensors."""
+    import torch.distributed as dist
+    first = next((leaf for _, leaf in _leaves(tree)), None)
+    return not (first is not None and is_dtensor(first)
+                and dist.get_rank() != 0)
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree, meta: Optional[dict]
                     = None, async_save: bool = False):
     """Write `tree` as step `step`; returns the writer thread when
-    `async_save` (join it before relying on the file), else None."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    `async_save` (join it before relying on the file), else None.  With
+    DTensor leaves every rank must call it; rank 0 writes."""
     flat = _flatten(tree)          # host copy happens synchronously
+    if not _writes(tree):
+        return None
+    os.makedirs(ckpt_dir, exist_ok=True)
 
     def _write():
         tmp = os.path.join(ckpt_dir, f".tmp-{step}.npz")
@@ -75,11 +98,17 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, like_tree, device=None):
+def restore_checkpoint(ckpt_dir: str, step: int, like_tree, mesh=None,
+                       specs=None, device=None):
     """The tree saved as `step`, shaped as `like_tree` (whose leaves give
     each array's shape, dtype and device; `device` overrides the
-    device).  Raises on a missing key or a shape mismatch."""
+    device).  With `mesh` and `specs` (a spec tree shaped as
+    `like_tree`, e.g. `param_specs(like_tree, mesh)`) each leaf becomes
+    a DTensor on `mesh` with its spec's placements, on the mesh's device
+    type; a DTensor leaf of `like_tree` gives its own mesh and
+    placements.  Raises on a missing key or a shape mismatch."""
     path = os.path.join(ckpt_dir, f"step-{step:08d}.npz")
+    spec_of = dict(tree_items(specs)) if specs is not None else None
     out = _map_shapes(like_tree, lambda leaf: None)
     with np.load(path) as data:
         for p, like in _leaves(like_tree):
@@ -87,7 +116,18 @@ def restore_checkpoint(ckpt_dir: str, step: int, like_tree, device=None):
             if arr.shape != tuple(like.shape):
                 raise ValueError(f"{_key(p)}: shape {arr.shape}, expected "
                                  f"{tuple(like.shape)}")
-            _set(out, p, torch.from_numpy(arr).to(
-                device=like.device if device is None else device,
-                dtype=like.dtype))
+            if mesh is not None and spec_of is not None:
+                from torch.distributed.tensor import distribute_tensor
+                t = torch.from_numpy(arr).to(device=mesh.device_type,
+                                             dtype=like.dtype)
+                leaf = distribute_tensor(
+                    t, mesh, to_placements(spec_of[p], mesh, t.dim()))
+            elif is_dtensor(like):
+                leaf = distribute_like(torch.from_numpy(arr).to(
+                    device=like.device, dtype=like.dtype), like)
+            else:
+                leaf = torch.from_numpy(arr).to(
+                    device=like.device if device is None else device,
+                    dtype=like.dtype)
+            _set(out, p, leaf)
     return out

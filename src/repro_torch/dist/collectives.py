@@ -1,5 +1,18 @@
-"""Explicit-path collective policies (DESIGN.md §13), ported from the
-policy emission of `repro.dist.collectives`.
+"""Ring collectives on process groups and explicit-path collective
+policies (DESIGN.md §6.2, §13), ported from `repro.dist.collectives`.
+
+The ring collectives take this rank's local tensor and a process group
+(``group=``, or ``mesh=`` and ``axis=``: the mesh dim's group) in place
+of the reference's ``shard_map`` axis name; the ring index is the rank's
+index in that group and one ring step (the reference's ``lax.ppermute``
+to the next-higher index) is a ``dist.batch_isend_irecv`` that sends to
+the next group rank and receives from the previous one.  Each step adds
+``cur + recv`` in the reference's order, so sums equal the reference's.
+`collective_matmul_ag` posts the send and receive of the next shard
+before the product of the current one and waits after it: the overlap
+the reference asserts in HLO.  On a group of one rank every function
+returns its one-rank meaning without communicating.  Gloo's
+point-to-point sends take CPU tensors; NCCL's, CUDA tensors.
 
 `emit_policy` turns a collective algorithm (a message-DAG builder of
 `repro_torch.sim.workloads.ir`) into an EXPLICIT-PATH
@@ -13,10 +26,6 @@ flit engine runs the result in source-routed mode, and
 numpy logic: its random draws (`path_seed`, `order_seed`) are the
 reference's `numpy.random.default_rng` calls, call for call, so both
 packages emit the same entries.
-
-Not ported yet: the reference's ppermute ring collectives and
-`collective_matmul_ag` (ROADMAP Queue 1 #13); this module does not
-define them.
 """
 
 from __future__ import annotations
@@ -25,8 +34,146 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
-__all__ = ["emit_policy", "POLICY_KINDS", "PATH_SETS"]
+__all__ = ["ring_all_reduce", "ring_reduce_scatter", "ring_all_gather",
+           "collective_matmul_ag", "emit_policy", "POLICY_KINDS", "PATH_SETS"]
+
+
+# ---------------------------------------------------------------------------
+# ring collectives on a process group
+# ---------------------------------------------------------------------------
+
+def _ring(group=None, mesh=None, axis=None):
+    """(group, n, idx, next global rank, previous global rank) of a ring
+    over `group`, or over mesh dim `axis` of `mesh`, or over the default
+    world."""
+    import torch.distributed as dist
+
+    if mesh is not None:
+        group = mesh.get_group(axis)
+    n = dist.get_world_size(group)
+    idx = dist.get_rank(group)
+    def glob(r):
+        return r if group is None else dist.get_global_rank(group, r)
+    return group, n, idx, glob((idx + 1) % n), glob((idx - 1) % n)
+
+
+def _post(send, recv, ring):
+    """Post one ring step: `send` to the next rank, `recv` from the
+    previous one.  Returns the requests to wait on."""
+    import torch.distributed as dist
+
+    group, _, _, nxt, prv = ring
+    return dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, send, nxt, group),
+        dist.P2POp(dist.irecv, recv, prv, group)])
+
+
+def _permute(send, ring):
+    """The reference's ``lax.ppermute(send, axis, ring perm)``."""
+    recv = torch.empty_like(send)
+    for req in _post(send.contiguous(), recv, ring):
+        req.wait()
+    return recv
+
+
+def ring_all_reduce(x, group=None, *, mesh=None, axis=None):
+    """Sum ``x`` over the group via reduce-scatter + all-gather rings:
+    2(n-1) steps of |x|/n elements each.  Payloads that don't divide the
+    group size are zero-padded internally; the result has ``x``'s shape
+    on every rank."""
+    ring = _ring(group, mesh, axis)
+    n, idx = ring[1], ring[2]
+    if n == 1:
+        return x
+    flat = x.reshape(-1)
+    size = flat.shape[0]
+    pad = (-size) % n
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    buf = flat.reshape(n, -1).clone()            # chunk c = buf[c]
+    # reduce-scatter: after step i, chunk (idx - i - 1) holds the
+    # partial sum of ranks {idx - i - 1, ..., idx}
+    for i in range(n - 1):
+        recv = _permute(buf[(idx - i) % n], ring)
+        k = (idx - 1 - i) % n
+        buf[k] = buf[k] + recv
+    # all-gather: chunk (idx + 1) % n is complete; circulate the
+    # completed chunks around the same ring
+    for i in range(n - 1):
+        buf[(idx - i) % n] = _permute(buf[(idx + 1 - i) % n], ring)
+    out = buf.reshape(-1)
+    if pad:
+        out = out[:size]
+    return out.reshape(x.shape)
+
+
+def ring_reduce_scatter(x, group=None, *, mesh=None, axis=None):
+    """Sum over the group, returning this rank's 1/n slice of dim 0
+    (rank d gets chunk d -- index-aligned with `ring_all_gather`)."""
+    ring = _ring(group, mesh, axis)
+    n, idx = ring[1], ring[2]
+    if n == 1:
+        return x
+    assert x.shape[0] % n == 0, (tuple(x.shape), n)
+    buf = x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:])).clone()
+    # after step i, chunk (idx - 2 - i) holds the partial sum of ranks
+    # {idx - i - 1, ..., idx}; after n-1 steps chunk idx is complete
+    for i in range(n - 1):
+        recv = _permute(buf[(idx - 1 - i) % n], ring)
+        k = (idx - 2 - i) % n
+        buf[k] = buf[k] + recv
+    return buf[idx]
+
+
+def ring_all_gather(x, group=None, *, mesh=None, axis=None):
+    """Every rank's ``x`` stacked on a new leading dim in ring order
+    (rank d's shard at index d), via n-1 ring steps."""
+    ring = _ring(group, mesh, axis)
+    n, idx = ring[1], ring[2]
+    out = torch.zeros((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    out[idx] = x
+    cur = x
+    for i in range(n - 1):
+        cur = _permute(cur, ring)
+        out[(idx - 1 - i) % n] = cur
+    return out
+
+
+def collective_matmul_ag(xs, ws, group=None, *, mesh=None, axis=None):
+    """``all_gather(xs) @ ws`` as an overlapped ring matmul.
+
+    ``xs``: this rank's [rows/n, K] shard of the activations; ``ws``:
+    [K, N] weights.  Each ring step multiplies the shard currently held
+    against ``ws`` into its global row block while the shard moves on:
+    the send and receive of step i+1 are posted before the product of
+    step i and waited on after it (Wang et al., "Overlap communication
+    with dependent computation via decomposition").  n-1 steps move a
+    shard; the last shard's product follows the loop."""
+    ring = _ring(group, mesh, axis)
+    n, idx = ring[1], ring[2]
+    block = xs.shape[0]
+    out = torch.zeros((n * block, ws.shape[-1]),
+                      dtype=torch.promote_types(xs.dtype, ws.dtype),
+                      device=xs.device)
+    cur = xs.contiguous()
+    for i in range(n - 1):
+        src = (idx - i) % n          # owner of the shard currently held
+        nxt = torch.empty_like(cur)
+        reqs = _post(cur, nxt, ring)
+        out[src * block:(src + 1) * block] = cur @ ws
+        for req in reqs:
+            req.wait()
+        cur = nxt
+    last = (idx - (n - 1)) % n
+    out[last * block:(last + 1) * block] = cur @ ws
+    return out
+
+
+# ---------------------------------------------------------------------------
+# explicit-path policy emission (DESIGN.md §13)
+# ---------------------------------------------------------------------------
 
 # collective kind -> (ir builder name, name of its per-message flit arg)
 POLICY_KINDS = {

@@ -1,3 +1,4 @@
-"""Launchers, as in `repro.launch`: the fault-tolerance harness
-(`faults.FaultMonitor`).  The mesh, specs and dry-run launchers wait for
-the mesh layers (ROADMAP Queue 1 #13)."""
+"""Launchers, as in `repro.launch`: mesh construction (`mesh`), the
+dry run's stand-ins (`specs`) and the multi-pod dry run (`dryrun`, run
+as ``python -m repro_torch.launch.dryrun``), the fault-tolerance
+harness (`faults.FaultMonitor`)."""

@@ -14,10 +14,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import constrain, gather_fsdp, is_dtensor
 from ..kernels import decode_attention
 
 __all__ = ["NEG_INF", "apply_rope", "attention_block", "flash_attention",
-           "gated_mlp", "rms_norm", "rope_angles", "softcap"]
+           "flatten", "gated_mlp", "rms_norm", "rope_angles", "softcap",
+           "tp_matmul", "unflatten"]
 
 NEG_INF = -2.0e38           # the flash prefill's mask value
 
@@ -57,36 +59,119 @@ def apply_rope(x, cos, sin):
 
 
 # ------------------------------------------------------------------- MLP --
+def tp_matmul(x, w):
+    """``x @ w``.  On DTensors, Megatron's tensor-parallel product run on
+    local shards: the weight gathered over the data axes
+    (`gather_fsdp`, FSDP's all-gather) with its split over the tp axis
+    (the last mesh dim) kept.  A column-parallel weight (output dim over
+    tp) takes x replicated over tp and gives an output split over it; a
+    row-parallel one (contraction dim over tp) takes x split over tp on
+    its features and gives a partial sum.  The local product's backward
+    is the same split: x's gradient a partial sum over tp (column) or
+    its shard (row), the weight's a partial sum over the data axes that
+    split the tokens.  DTensor's own per-product choice moves the
+    activations (every token, or the weights gathered whole) where
+    GSPMD keeps them."""
+    if not is_dtensor(w):
+        return x @ w
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    w = gather_fsdp(w)
+    mesh = w.device_mesh
+    tp = mesh.ndim - 1
+    if not is_dtensor(x):
+        from torch.distributed.tensor import distribute_tensor
+        x = distribute_tensor(x, mesh, [Replicate()] * mesh.ndim)
+    col = w.placements[tp] == Shard(w.dim() - 1)
+    row = w.placements[tp] == Shard(w.dim() - 2)
+    last = x.dim() - 1
+    xp, wgrad = [], []
+    for i, pl in enumerate(x.placements[:tp]):
+        keep = isinstance(pl, Shard) and pl.dim != last
+        xp.append(pl if keep else Replicate())
+        wgrad.append(Partial() if keep else Replicate())
+    xp.append(Shard(last) if row else Replicate())
+    wgrad.append(w.placements[tp])
+    x = x.redistribute(mesh, xp)
+    y = x.to_local(grad_placements=xp[:tp] + [
+        Partial() if col else xp[tp]]) @ w.to_local(grad_placements=wgrad)
+    return DTensor.from_local(y, mesh, xp[:tp] + [
+        Shard(y.dim() - 1) if col else Partial() if row else Replicate()])
+
+
 def gated_mlp(x, w_gate, w_up, w_down, act: str = "silu"):
-    g = x @ w_gate
-    u = x @ w_up
+    g = tp_matmul(x, w_gate)
+    u = tp_matmul(x, w_up)
     if act == "silu":
         h = F.silu(g) * u
     else:
         h = F.gelu(g, approximate="tanh") * u
-    return h @ w_down
+    return tp_matmul(h, w_down)
 
 
 # ------------------------------------------------------- flash attention --
+def unflatten(t, dim: int, sizes):
+    """``t.unflatten(dim, sizes)``.  A DTensor whose dim `dim` is sharded
+    over a number of ranks that does not divide ``sizes[0]`` is first
+    replicated on those mesh dims: a shard would then split an inner
+    block, which DTensor cannot view (GSPMD reshards there silently)."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+        dim = dim % t.dim()
+        n = 1
+        for size, pl in zip(t.device_mesh.shape, t.placements):
+            if pl == Shard(dim):
+                n *= size
+        if sizes[0] % n:
+            t = t.redistribute(t.device_mesh, [
+                Replicate() if pl == Shard(dim) else pl
+                for pl in t.placements])
+    return t.unflatten(dim, sizes)
+
+
+def flatten(t, start: int, end: int):
+    """``t.flatten(start, end)``; on a DTensor the gradient is brought
+    back to the result's own layout before the backward view splits the
+    dims again (a gradient sharded finer than the leading dim would
+    otherwise fail to unflatten)."""
+    t = t.flatten(start, end)
+    if is_dtensor(t):
+        t = t.redistribute(t.device_mesh, t.placements)
+    return t
+
+
+def _dp_entry(cfg_layer):
+    dp = cfg_layer.get("dp_axes") or ()
+    return (tuple(dp) if len(dp) > 1 else dp[0]) if dp else None
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, block: int = 1024,
-                    cap: Optional[float] = None):
+                    cap: Optional[float] = None, seq_axes=None,
+                    q_start: Optional[int] = None):
     """Blockwise online-softmax attention over KV blocks of `block`; never
     materialises the S x S score matrix.
 
     q: [B, Sq, H, D]; k, v: [B, Skv, Hkv, D] (GQA: H = G * Hkv).
-    causal assumes q occupies the LAST Sq positions of the Skv timeline.
+    causal assumes q occupies the LAST Sq positions of the Skv timeline
+    (or, with `q_start`, positions q_start ... q_start + Sq - 1).
     window: attend to the last `window` positions, the own one included.
     The last block is not padded: the reference pads it with masked
     positions, whose weight exp(-2e38 - m) is exactly 0.
+    On DTensors the loop runs on each rank's local shards
+    (`_flash_local`); seq_axes: (dp_axes, tp_axis) of the
+    context-parallel layout, whose queries' sequence rides the tp axis.
     """
+    if is_dtensor(q):
+        return _flash_local(q, k, v, seq_axes, causal=causal, window=window,
+                            block=block, cap=cap)
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
     scale = 1.0 / (D ** 0.5)
     dev = q.device
     qf = (q.float() * scale).reshape(B, Sq, Hkv, G, D)
-    q_pos = (Skv - Sq) + torch.arange(Sq, device=dev)
+    q_pos = (Skv - Sq if q_start is None else q_start) + torch.arange(
+        Sq, device=dev)
 
     m = torch.full((B, Hkv, G, Sq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, Hkv, G, Sq), dtype=torch.float32, device=dev)
@@ -116,13 +201,73 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return out.to(q.dtype)
 
 
+def _flash_local(q, k, v, seq_axes, **kw):
+    """`flash_attention` on DTensors as a ``shard_map`` of the plain
+    loop: the core is independent per sequence, per kv head group and
+    (with its keys whole) per query, so each rank runs it on its local
+    shards.  Per mesh dim: the batch stays split where q splits it, the
+    queries' sequence where the dim is the context-parallel tp axis (keys
+    and values gathered there, their gradients partial sums), the heads
+    where q splits them and the kv heads divide; otherwise the dim
+    replicates.  DTensor's own rules for the loop's products flatten
+    sharded dims, which some releases refuse."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = q.device_mesh
+    B, Sq = q.shape[:2]
+    Hkv = k.shape[2]
+    tp = seq_axes[1] if seq_axes else None
+    qp, kp, kgrad = [], [], []
+    nb = nh = 1
+    q_start = k.shape[1] - Sq
+    for i, (name, size) in enumerate(zip(mesh.mesh_dim_names, mesh.shape)):
+        pl = q.placements[i]
+        if name == tp and Sq % size == 0:
+            qp.append(Shard(1))
+            kp.append(Replicate())
+            kgrad.append(Partial())
+            q_start += mesh.get_local_rank(i) * (Sq // size)
+        elif pl == Shard(0) and B % (nb * size) == 0:
+            nb *= size
+            qp.append(pl)
+            kp.append(pl)
+            kgrad.append(pl)
+        elif pl == Shard(2) and Hkv % (nh * size) == 0:
+            nh *= size
+            qp.append(pl)
+            kp.append(pl)
+            kgrad.append(pl)
+        else:
+            qp.append(Replicate())
+            kp.append(Replicate())
+            kgrad.append(Replicate())
+    ql = q.redistribute(mesh, qp).to_local()
+    kl = k.redistribute(mesh, kp).to_local(grad_placements=kgrad)
+    vl = v.redistribute(mesh, kp).to_local(grad_placements=kgrad)
+    out = flash_attention(ql, kl, vl, q_start=q_start, **kw)
+    return DTensor.from_local(out, mesh, qp)
+
+
+def _write_slot(cache, slot, new) -> None:
+    """``cache[b, :, slot[b]] = new[b]`` in place on a DTensor ring
+    cache [B, Hkv, C, Dh] (new [B, Hkv, Dh]), as a masked select over the
+    slot dim: DTensor has no rule for the indexed write into a cache
+    whose batch and heads (or sequence) are sharded."""
+    pos = torch.arange(cache.shape[2], device=cache.device)
+    hit = (pos[None, :] == slot[:, None])[:, None, :, None]   # [B,1,C,1]
+    cache.copy_(torch.where(hit, new[:, :, None, :].to(cache.dtype), cache))
+
+
 def attention_block(x, params, cfg_layer, positions, cache=None,
                     kernel_path: str = "auto"):
     """GQA attention block (pre-norm applied by the caller).
 
     x: [B, S, D_model].  params: dict(wq, wk, wv, wo [+ q_norm/k_norm]).
     cfg_layer: dict(n_heads, n_kv_heads, head_dim, window, cap, rope_theta,
-    causal); the reference's sharding hints are ignored.
+    causal, dp_axes, tp_axis, seq_shard); with ``seq_shard`` and a tp
+    axis the full-sequence core runs context-parallel (the reference's
+    hints: queries' sequence over tp, keys and values replicated over
+    it), as DTensor redistributions that plain tensors skip.
 
     cache=None (train / prefill): blockwise-flash attention; returns
       (out, (k, v)) with k/v [B, S, Hkv, Dh] post-RoPE, for the serving
@@ -144,9 +289,9 @@ def attention_block(x, params, cfg_layer, positions, cache=None,
     theta = cfg_layer.get("rope_theta", 10_000.0)
     causal = cfg_layer.get("causal", True)
 
-    q = (x @ params["wq"]).reshape(B, S, H, Dh)
-    k = (x @ params["wk"]).reshape(B, S, Hkv, Dh)
-    v = (x @ params["wv"]).reshape(B, S, Hkv, Dh)
+    q = unflatten(tp_matmul(x, params["wq"]), -1, (H, Dh))
+    k = unflatten(tp_matmul(x, params["wk"]), -1, (Hkv, Dh))
+    v = unflatten(tp_matmul(x, params["wv"]), -1, (Hkv, Dh))
     if "q_norm" in params:     # gemma3-style qk-norm
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
@@ -156,20 +301,38 @@ def attention_block(x, params, cfg_layer, positions, cache=None,
         k = apply_rope(k, cos, sin)
 
     if cache is None:
-        out = flash_attention(q, k, v, causal=causal, window=window, cap=cap)
-        return out.reshape(B, S, H * Dh) @ params["wo"], (k, v)
+        seq_axes = None
+        if cfg_layer.get("seq_shard") and cfg_layer.get("tp_axis"):
+            # context-parallel attention core: the SEQUENCE over the tp
+            # axis (kv heads < tp size would otherwise pad heads)
+            dp_e, tp = _dp_entry(cfg_layer), cfg_layer["tp_axis"]
+            q = constrain(q, (dp_e, tp, None, None))
+            k = constrain(k, (dp_e, None, None, None))
+            v = constrain(v, (dp_e, None, None, None))
+            seq_axes = (tuple(cfg_layer.get("dp_axes") or ()), tp)
+        out = flash_attention(q, k, v, causal=causal, window=window, cap=cap,
+                              seq_axes=seq_axes)
+        out = flatten(out, 2, 3)
+        if seq_axes is not None:
+            out = constrain(out, (_dp_entry(cfg_layer), None, seq_axes[1]))
+        return tp_matmul(out, params["wo"]), (k, v)
 
     assert S == 1, "decode path handles one token at a time"
     ck, cv, clen = cache["k"], cache["v"], cache["len"]
     C = ck.shape[2]
     slot = (clen % C).long()                          # ring position [B]
-    rows = torch.arange(B, device=ck.device)
-    ck[rows, :, slot] = k[:, 0].to(ck.dtype)          # [B, Hkv, Dh] rows
-    cv[rows, :, slot] = v[:, 0].to(cv.dtype)
+    if is_dtensor(ck):
+        _write_slot(ck, slot, k[:, 0])
+        _write_slot(cv, slot, v[:, 0])
+    else:
+        rows = torch.arange(B, device=ck.device)
+        ck[rows, :, slot] = k[:, 0].to(ck.dtype)      # [B, Hkv, Dh] rows
+        cv[rows, :, slot] = v[:, 0].to(cv.dtype)
     new_len = clen + 1
     eff_len = torch.clamp(new_len, max=C).to(torch.int32)
-    qg = q.reshape(B, Hkv, H // Hkv, Dh)
+    qg = unflatten(q[:, 0], 1, (Hkv, H // Hkv)) if is_dtensor(q) else \
+        q.reshape(B, Hkv, H // Hkv, Dh)
     out = decode_attention(qg, ck, cv, eff_len, cap=cap,
                            kernel_path=kernel_path)
     out = out.reshape(B, S, H * Dh)
-    return out @ params["wo"], dict(k=ck, v=cv, len=new_len)
+    return tp_matmul(out, params["wo"]), dict(k=ck, v=cv, len=new_len)

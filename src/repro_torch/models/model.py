@@ -33,12 +33,14 @@ import functools
 
 import numpy as np
 import torch
+from torch.distributed.tensor import Shard
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
-from .layers import (attention_block, flash_attention, gated_mlp, rms_norm,
-                     softcap)
+from ..dist.sharding import constrain, is_dtensor
+from .layers import (attention_block, flash_attention, flatten, gated_mlp,
+                     rms_norm, softcap, tp_matmul, unflatten)
 from .moe import moe_layer, moe_param_shapes
 from .ssm import (mamba2_block, mamba2_decode_step, mamba2_init_state,
                   mamba2_param_shapes)
@@ -53,6 +55,25 @@ __all__ = ["decode_step", "forward", "forward_hidden", "init_cache",
 
 def _use_scan(cfg: ModelConfig) -> bool:
     return cfg.scan_layers and not cfg.n_encoder_layers
+
+
+def _constrain(x, cfg: ModelConfig, *dims):
+    """The launcher's activation hint, as the reference's: dims entries
+    'dp' -> the batch axes, 'tp' -> the tensor axis, None -> replicated.
+    A redistribution of a DTensor; nothing when the config names no mesh
+    axes or `x` is a plain tensor."""
+    if not cfg.dp_axes and not cfg.tp_axis:
+        return x
+    spec = []
+    for d in dims:
+        if d == "dp" and cfg.dp_axes:
+            spec.append(tuple(cfg.dp_axes) if len(cfg.dp_axes) > 1
+                        else cfg.dp_axes[0])
+        elif d == "tp" and cfg.tp_axis:
+            spec.append(cfg.tp_axis)
+        else:
+            spec.append(None)
+    return constrain(x, tuple(spec))
 
 
 # =========================================================== param shapes ==
@@ -247,7 +268,9 @@ def _dense_ffn(x, lp, cfg):
 def _moe_ffn(x, lp, cfg: ModelConfig):
     return moe_layer(x, lp["moe"], top_k=cfg.top_k,
                      capacity_factor=cfg.capacity_factor,
-                     shared_expert=cfg.shared_expert)
+                     shared_expert=cfg.shared_expert,
+                     layout=(cfg.dp_axes, cfg.tp_axis, cfg.moe_ep,
+                             cfg.moe_groups))
 
 
 def _shared_block(x, sp, cfg: ModelConfig, positions, cache=None,
@@ -306,22 +329,20 @@ def _decoder_layer_full(x, lp, spec, cfg: ModelConfig, positions,
 def _cross_attention(x, ap, enc_out, cfg: ModelConfig, cached_kv=None):
     """Cross attention to the encoder's output (whisper's decoder), in
     plain PyTorch as the reference's (it never calls the decode kernel)."""
-    B, S, _ = x.shape
-    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ ap["wq"]).reshape(B, S, H, Dh)
+    H, Dh = cfg.n_heads, cfg.hd
+    q = unflatten(tp_matmul(x, ap["wq"]), -1, (H, Dh))
     if cached_kv is None:
         k, v = _cross_kv(enc_out, ap, cfg)
     else:
         k, v = cached_kv
     out = flash_attention(q, k, v, causal=False, block=512)
-    out = out.reshape(B, S, H * Dh) @ ap["wo"]
+    out = tp_matmul(flatten(out, 2, 3), ap["wo"])
     return out, (k, v)
 
 
 def _cross_kv(enc_out, ap, cfg: ModelConfig):
-    B, F = enc_out.shape[:2]
-    k = (enc_out @ ap["wk"]).reshape(B, F, cfg.n_kv_heads, cfg.hd)
-    v = (enc_out @ ap["wv"]).reshape(B, F, cfg.n_kv_heads, cfg.hd)
+    k = unflatten(tp_matmul(enc_out, ap["wk"]), -1, (cfg.n_kv_heads, cfg.hd))
+    v = unflatten(tp_matmul(enc_out, ap["wv"]), -1, (cfg.n_kv_heads, cfg.hd))
     return k, v
 
 
@@ -340,7 +361,7 @@ def _run_encoder(params, frames, cfg: ModelConfig):
 def _embed_inputs(params, batch, cfg: ModelConfig):
     """Token embedding times sqrt(d_model), the vision stub's patches
     before the tokens.  Returns (x, number of frontend positions)."""
-    x = params["embed"][batch["tokens"]] * (cfg.d_model ** 0.5)
+    x = _embed(params["embed"], batch["tokens"]) * (cfg.d_model ** 0.5)
     n_front = 0
     if cfg.frontend == "vision_stub" and "patches" in batch:
         x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
@@ -359,6 +380,7 @@ def forward_hidden(params, batch, cfg: ModelConfig,
     requires grad) dispatches the plain loop's operations.
     Returns (hidden [B, S_total, D], stashes | None, n_front)."""
     x, n_front = _embed_inputs(params, batch, cfg)
+    x = _constrain(x, cfg, "dp", None, None)
     positions = torch.arange(x.shape[1], device=x.device)[None]
     enc_out = None
     if cfg.n_encoder_layers:
@@ -409,8 +431,124 @@ def _unembed_matrix(params, cfg: ModelConfig):
 def forward(params, batch, cfg: ModelConfig):
     """Full logits [B, S_total, vocab] (materialises the logits)."""
     x, _, _ = forward_hidden(params, batch, cfg)
-    logits = x @ _unembed_matrix(params, cfg).to(x.dtype)
+    logits = tp_matmul(x, _unembed_matrix(params, cfg).to(x.dtype))
     return softcap(logits, cfg.final_softcap)
+
+
+def _vocab_split(t, dim: int):
+    """For DTensor `t` whose dim `dim` (a vocabulary) may be sharded:
+    (t, the mesh dims sharding it, this rank's first index, the slice
+    width).  Where those mesh dims do not divide the dim evenly, `t` is
+    first replicated there (no split)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = t.device_mesh
+    dim = dim % t.dim()
+    dims = [i for i, pl in enumerate(t.placements) if pl == Shard(dim)]
+    n = 1
+    for i in dims:
+        n *= mesh.shape[i]
+    if t.shape[dim] % n:
+        t = t.redistribute(mesh, [Replicate() if pl == Shard(dim) else pl
+                                  for pl in t.placements])
+        dims, n = [], 1
+    idx = 0
+    for i in dims:
+        idx = idx * mesh.shape[i] + mesh.get_local_rank(i)
+    width = t.shape[dim] // n
+    return t, dims, idx * width, width
+
+
+def _embed(table, tokens):
+    """``table[tokens]``.  On a DTensor table, the vocabulary-parallel
+    lookup: each rank gathers the table over every mesh dim but the ones
+    that split the vocabulary (FSDP's all-gather), looks up the tokens
+    of its batch shard that fall in its own slice of the vocabulary
+    (zero rows for the others), and the rows are summed over the
+    vocabulary's mesh dims (a ``Partial`` result).  DTensor's rules for
+    this gather and its backward scatter fail on sharded tables in some
+    releases."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                          distribute_tensor)
+    table, vdims, start, width = _vocab_split(table, 0)
+    mesh = table.device_mesh
+    if not is_dtensor(tokens):
+        tokens = distribute_tensor(tokens, mesh,
+                                   [Replicate()] * mesh.ndim)
+    tok = [pl if pl == Shard(0) and i not in vdims else Replicate()
+           for i, pl in enumerate(tokens.placements)]
+    tokens = tokens.redistribute(mesh, tok)
+    local = table.redistribute(mesh, [
+        pl if i in vdims else Replicate()
+        for i, pl in enumerate(table.placements)]).to_local(
+        grad_placements=[
+            table.placements[i] if i in vdims
+            else (Partial() if tok[i] == Shard(0) else Replicate())
+            for i in range(mesh.ndim)])
+    off = tokens.to_local().long() - start
+    inside = (off >= 0) & (off < width)
+    rows = local[torch.clamp(off, 0, width - 1)]
+    rows = torch.where(inside[..., None], rows, 0.0)
+    return DTensor.from_local(rows, mesh, [
+        Partial() if i in vdims else tok[i] for i in range(mesh.ndim)])
+
+
+def _logsumexp(logits):
+    """``torch.logsumexp(logits, -1)``.  On a DTensor whose last (vocab)
+    dim is sharded, on local shards: each rank's max and sum of shifted
+    exponentials over its slice of the vocabulary, then one all-reduce
+    each (max, a constant shift; sum, a ``Partial`` result), so the
+    [B, chunk, vocab] logits are never gathered.  The same arithmetic
+    as DTensor operations (a max of the sharded dim, then the shifted
+    sum) gives wrong gradients in torch 2.11 (`tools/mesh_worlds.py`)."""
+    if not is_dtensor(logits) or not any(
+            pl == Shard(logits.dim() - 1) for pl in logits.placements):
+        return torch.logsumexp(logits, dim=-1)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    logits, vdims, _, _ = _vocab_split(logits, -1)
+    mesh = logits.device_mesh
+    rows = [Replicate() if i in vdims else pl
+            for i, pl in enumerate(logits.placements)]
+    local = logits.to_local()
+    m = DTensor.from_local(
+        local.detach().amax(dim=-1, keepdim=True), mesh,
+        [Partial("max") if i in vdims else pl
+         for i, pl in enumerate(logits.placements)]).redistribute(
+        mesh, rows).to_local()
+    s = DTensor.from_local(
+        torch.exp(local - m).sum(dim=-1, keepdim=True), mesh,
+        [Partial() if i in vdims else pl
+         for i, pl in enumerate(logits.placements)]).redistribute(mesh, rows)
+    return (DTensor.from_local(m, mesh, rows) + torch.log(s))[..., 0]
+
+
+def _pick(logits, tc):
+    """``logits[..., tc]``: each row's value at its target.  On a DTensor
+    whose last (vocab) dim is sharded, each rank picks the targets that
+    fall in its own slice of the vocabulary and the picks are summed
+    over those mesh dims (a ``Partial`` result); DTensor's own rule for
+    this gather (a masked partial) fails on this shape."""
+    if not is_dtensor(logits):
+        return torch.gather(logits, -1, tc[..., None])[..., 0]
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          distribute_tensor)
+    logits, vdims, start, width = _vocab_split(logits, -1)
+    mesh = logits.device_mesh
+    rows = [Replicate() if i in vdims else pl
+            for i, pl in enumerate(logits.placements)]
+    if is_dtensor(tc):
+        tc = tc.redistribute(mesh, rows)
+    else:
+        tc = distribute_tensor(tc, mesh, rows)
+    off = tc.to_local() - start
+    inside = (off >= 0) & (off < width)
+    got = torch.gather(logits.to_local(), -1,
+                       torch.clamp(off, 0, width - 1)[..., None])[..., 0]
+    got = torch.where(inside, got, 0.0)
+    return DTensor.from_local(
+        got, mesh, [Partial() if i in vdims else pl
+                    for i, pl in enumerate(logits.placements)])
 
 
 def loss_fn(params, batch, cfg: ModelConfig):
@@ -430,11 +568,10 @@ def loss_fn(params, batch, cfg: ModelConfig):
     unembed = _unembed_matrix(params, cfg)
 
     def chunk_nll(xc, tc):
-        logits = xc @ unembed.to(xc.dtype)
+        logits = tp_matmul(xc, unembed.to(xc.dtype))
+        logits = _constrain(logits, cfg, "dp", None, "tp")
         logits = softcap(logits, cfg.final_softcap).to(torch.float32)
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = torch.gather(logits, -1, tc[..., None])[..., 0]
-        return (lse - picked).sum()
+        return (_logsumexp(logits) - _pick(logits, tc)).sum()
 
     if torch.is_grad_enabled():
         nll = functools.partial(checkpoint, chunk_nll, use_reentrant=False)
@@ -494,7 +631,7 @@ def decode_step(params, tokens, cfg: ModelConfig, cache,
     are written in place (see `attention_block`) and their decode
     attention goes through the kernel or its plain version by
     `kernel_path`; recurrent states are replaced."""
-    x = params["embed"][tokens] * (cfg.d_model ** 0.5)
+    x = _embed(params["embed"], tokens) * (cfg.d_model ** 0.5)
     positions = cache["len"][:, None]
     new_layers = []
     for i, (spec, lc) in enumerate(zip(cfg.layer_kinds(), cache["layers"])):
@@ -538,7 +675,7 @@ def decode_step(params, tokens, cfg: ModelConfig, cache,
             x = x + y
         new_layers.append(nc)
     x = rms_norm(x, params["final_norm"])
-    logits = softcap(x @ _unembed_matrix(params, cfg).to(x.dtype),
+    logits = softcap(tp_matmul(x, _unembed_matrix(params, cfg).to(x.dtype)),
                      cfg.final_softcap)
     return logits, dict(cache, layers=new_layers, len=cache["len"] + 1)
 
@@ -553,7 +690,8 @@ def prefill(params, batch, cfg: ModelConfig, cache):
                                          collect_stash=True)
     B, S = batch["tokens"].shape
     S += n_front
-    logits = softcap(x[:, -1:] @ _unembed_matrix(params, cfg).to(x.dtype),
+    logits = softcap(tp_matmul(x[:, -1:],
+                               _unembed_matrix(params, cfg).to(x.dtype)),
                      cfg.final_softcap)
     new_layers = []
     for spec, lc, stash in zip(cfg.layer_kinds(), cache["layers"], stashes):

@@ -9,6 +9,16 @@ buffers to the jitted step instead): at gemma2-2b's full width a
 second copy of parameters and moments would be 31 GB more of the card.
 Callers that keep the old values clone them first (`repro_torch.train.
 train` does).
+
+On DTensor parameters the moments are DTensors: float32 moments laid
+out as their parameter, int8 blocks [nblocks, 128] and their scales
+sharded on the block dim over every mesh dim that divides it (the
+reference's `opt_struct`).  The blocks are those of the GLOBAL
+flattened leaf, as the reference's, so the codes equal a
+single-process run's: `_read_state` and `_write_state` run the block
+codec on the gathered leaf (``full_tensor``; DTensor has no rule for
+re-blocking a flattened, padded shard) and lay its result out as the
+parameter, or as the state.
 """
 
 from __future__ import annotations
@@ -19,6 +29,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import (distribute_like, dtensor_scope, is_dtensor,
+                             sanitize_spec, to_placements)
 from ..models.model import _leaves, _map_shapes
 
 __all__ = ["AdamWConfig", "init_opt_state", "adamw_update", "lr_schedule",
@@ -81,10 +93,12 @@ def init_opt_state(params, cfg: AdamWConfig) -> dict:
     ``quantized_state``; on the parameters' device."""
     def zeros_like_state(p):
         if cfg.quantized_state:
-            q, s, _ = quantize_blockwise(torch.zeros_like(p,
-                                                          dtype=torch.float32))
+            q, s, _ = quantize_blockwise(torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device))
+            if is_dtensor(p):
+                q, s = _block_sharded(q, p), _block_sharded(s, p)
             return dict(q=q, scale=s)
-        return torch.zeros(p.shape, dtype=cfg.state_dtype, device=p.device)
+        return torch.zeros_like(p, dtype=cfg.state_dtype)
 
     device = next(leaf for _, leaf in _leaves(params)).device
     return dict(m=_map_shapes(params, zeros_like_state),
@@ -92,15 +106,35 @@ def init_opt_state(params, cfg: AdamWConfig) -> dict:
                 step=torch.zeros((), dtype=torch.int32, device=device))
 
 
+def _block_sharded(t, like):
+    """Plain block tensor `t` [nblocks, ...] distributed on the mesh of
+    DTensor `like`, its dim 0 over every mesh dim that divides it."""
+    from torch.distributed.tensor import distribute_tensor
+    mesh = like.device_mesh
+    spec = sanitize_spec(tuple(t.shape), (tuple(mesh.mesh_dim_names),),
+                         mesh)
+    return distribute_tensor(t, mesh, to_placements(spec, mesh, t.dim()))
+
+
 def _read_state(st, like):
     if isinstance(st, dict):
+        if is_dtensor(like):
+            m = dequantize_blockwise(st["q"].full_tensor(),
+                                     st["scale"].full_tensor(),
+                                     tuple(like.shape))
+            return distribute_like(m, like)
         return dequantize_blockwise(st["q"], st["scale"], tuple(like.shape))
     return st.to(torch.float32)
 
 
 def _write_state(st, val) -> None:
     if isinstance(st, dict):
-        q, s, _ = quantize_blockwise(val)
+        if is_dtensor(val):
+            q, s, _ = quantize_blockwise(val.full_tensor())
+            q, s = distribute_like(q, st["q"]), distribute_like(s,
+                                                                st["scale"])
+        else:
+            q, s, _ = quantize_blockwise(val)
         st["q"].copy_(q)
         st["scale"].copy_(s)
     else:
@@ -117,6 +151,11 @@ def adamw_update(params, grads, opt_state, cfg: AdamWConfig):
     """One AdamW step, IN PLACE on `params` and `opt_state` (see the
     module's docstring).  Returns (params, opt_state, metrics) -- the
     trees passed in -- with metrics dict(grad_norm, lr)."""
+    with dtensor_scope(params):
+        return _adamw_update(params, grads, opt_state, cfg)
+
+
+def _adamw_update(params, grads, opt_state, cfg: AdamWConfig):
     step = opt_state["step"] + 1
     lr = lr_schedule(step, cfg)
 

@@ -9,6 +9,16 @@ made to require grad, then updates the parameters and moments in place
 (`repro_torch.optim.adamw_update`); `train` works on a private clone of
 the caller's parameters, as the reference copies them before donating
 them to its jitted step.
+
+Parameters may be DTensors (`repro_torch.dist.sharding.shard_params`),
+the counterpart of the reference's sharded global arrays under jit.
+The step then runs inside `dtensor_scope`, and three sites redistribute
+explicitly: `_shard_batch` distributes a plain batch over the data axes
+(`batch_spec`), `_microbatch` keeps each slice of it so sharded (a
+slice of a dim-0-sharded DTensor would otherwise come back replicated,
+every data rank computing the same rows), and `_value_and_grad` brings
+each gradient to its parameter's placements (FSDP's reduce-scatter) and
+the loss to one replicated value.
 """
 
 from __future__ import annotations
@@ -21,6 +31,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..dist.sharding import (batch_spec, distribute_like, dtensor_scope,
+                             is_dtensor, to_placements)
 from ..launch.faults import FaultMonitor
 from ..models.model import (_dots_saveable, _leaves, _map_shapes, _set,
                             loss_fn)
@@ -54,12 +66,42 @@ def _remat_loss(name: str) -> Callable:
 
 
 def _value_and_grad(loss, params, batch, cfg):
-    """(loss, [grad per leaf in `_leaves` order])."""
+    """(loss, [grad per leaf in `_leaves` order]); with DTensor
+    parameters each gradient is laid out as its parameter and the loss
+    is a plain replicated scalar."""
     tree = _map_shapes(params,
                        lambda leaf: leaf.detach().requires_grad_(True))
     value = loss(tree, batch, cfg)
-    grads = torch.autograd.grad(value, [leaf for _, leaf in _leaves(tree)])
-    return value.detach(), list(grads)
+    leaves = [leaf for _, leaf in _leaves(tree)]
+    grads = list(torch.autograd.grad(value, leaves))
+    if is_dtensor(value):
+        grads = [distribute_like(g, p) for g, p in zip(grads, leaves)]
+        value = value.full_tensor()
+    return value.detach(), grads
+
+
+def _shard_batch(batch, params):
+    """A batch of plain tensors (the same on every rank) distributed over
+    the data axes of the DTensor parameters' mesh; as it is otherwise."""
+    first = next(leaf for _, leaf in _leaves(params))
+    if not is_dtensor(first):
+        return batch
+    from torch.distributed.tensor import distribute_tensor
+    mesh = first.device_mesh
+    bsp = batch_spec(mesh)
+    return {k: v if is_dtensor(v) else distribute_tensor(
+                v, mesh, to_placements(bsp, mesh, v.dim()))
+            for k, v in batch.items()}
+
+
+def _microbatch(v, i: int, n: int):
+    """Rows [i B/n, (i+1) B/n) of batch tensor `v`, as the reference's
+    dynamic slice; a DTensor slice keeps `v`'s placements."""
+    rows = v.shape[0] // n
+    mb = v[i * rows:(i + 1) * rows]
+    if is_dtensor(v):
+        mb = distribute_like(mb, v)
+    return mb
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
@@ -70,15 +112,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     base_loss = _remat_loss(tc.remat)
 
     def step(params, opt_state, batch):
+        with dtensor_scope(params):
+            return _step(params, opt_state, _shard_batch(batch, params))
+
+    def _step(params, opt_state, batch):
         if tc.microbatches > 1:
             loss = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
-            grads = [torch.zeros(leaf.shape, dtype=torch.float32,
-                                 device=leaf.device)
+            grads = [torch.zeros_like(leaf, dtype=torch.float32)
                      for _, leaf in _leaves(params)]
             for i in range(tc.microbatches):
-                mb = {k: v[i * (v.shape[0] // tc.microbatches):
-                           (i + 1) * (v.shape[0] // tc.microbatches)]
+                mb = {k: _microbatch(v, i, tc.microbatches)
                       for k, v in batch.items()}
                 l, g = _value_and_grad(base_loss, params, mb, cfg)
                 loss = loss + l
