@@ -12,7 +12,11 @@ terms (`repro_torch.utils.roofline`) and dumps them as JSON.
 
   python -m repro_torch.launch.dryrun --arch gemma2-2b --shape train_4k \\
       [--multi-pod] [--out results.json] [--device cpu]
-  python -m repro_torch.launch.dryrun --all
+  python -m repro_torch.launch.dryrun --all [--arch gemma2-2b] [--multi-pod]
+
+``--all`` runs every (arch x shape) cell of the mesh, or with ``--arch``
+that arch's four shapes (one process per arch runs the grid in
+parallel).
 
 The row keys are the reference's.  ``compile_s`` is the seconds the
 cell took to TRACE (build the stand-ins and run the step once on fake
@@ -31,6 +35,7 @@ its default process group.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -100,6 +105,44 @@ def _local_bytes(tree) -> float:
     return total
 
 
+def _slstm_one_step(x_pre, state, r_rec, n_heads, d_head):
+    """`repro_torch.models.xlstm._slstm_steps` as the dry run traces it:
+    the S steps as ONE step over B*S rows, each row starting from the
+    initial state -- the same operations on S times the rows, so the
+    products' FLOPs, the activations' bytes and what the backward pass
+    saves count as the loop's (the recurrence's weight is read once,
+    not per step), with ~15 dispatches instead of ~15 S.  A fake tensor
+    has no values, so nothing is lost but the steps' order; the
+    reference's analysis likewise counts its scan's body once times the
+    trip count."""
+    from ..models.xlstm import _slstm_cell
+    B, S = x_pre.shape[:2]
+    c, n, h = (s[:, None].expand(B, S, *s.shape[1:]).reshape(
+        B * S, *s.shape[1:]) for s in state)
+    x_rows = x_pre.reshape(B * S, -1)
+    if torch.is_grad_enabled() and x_pre.requires_grad:
+        # every step after the first starts from a state that depends on
+        # the inputs, so the backward pass also takes the recurrence's
+        # product for the state's gradient
+        h = h + 0.0 * x_rows.reshape(B * S, n_heads, -1)[..., :d_head]
+    out = _slstm_cell(x_rows, (c, n, h), r_rec, n_heads, d_head)
+    out = tuple(o.reshape(B, S, *o.shape[1:]) for o in out)
+    return out[2], tuple(o[:, -1] for o in out)
+
+
+@contextlib.contextmanager
+def _traced_slstm():
+    """`_slstm_one_step` in place of the sLSTM's per-token loop, for the
+    block of code inside (the dry run's trace on fake tensors)."""
+    from ..models import xlstm
+    loop = xlstm._slstm_steps
+    xlstm._slstm_steps = _slstm_one_step
+    try:
+        yield
+    finally:
+        xlstm._slstm_steps = loop
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              microbatches: int = 1, remat: str = "none",
              fsdp: bool = True, scan_layers: bool = True,
@@ -125,7 +168,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     chips = math.prod(tuple(mesh.shape))
     counter = ProgramCounter()
     t0 = time.time()
-    with FakeTensorMode(allow_non_fake_inputs=True):
+    with FakeTensorMode(allow_non_fake_inputs=True), _traced_slstm():
         params = S.params_struct(cfg, mesh, torch.bfloat16,
                                  fsdp=fsdp and shape.kind == "train")
         if shape.kind == "train":
@@ -203,7 +246,7 @@ def main(argv=None):
 
     cells = []
     if args.all:
-        for a in sorted(ARCHS):
+        for a in [args.arch] if args.arch else sorted(ARCHS):
             for s in ["train_4k", "prefill_32k", "decode_32k", "long_500k"]:
                 cells.append((a, s, args.multi_pod))
     else:

@@ -9,10 +9,11 @@ Layouts follow the reference: weights are [in, out] and applied as
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Shard
 
 from ..dist.sharding import constrain, gather_fsdp, is_dtensor
 from ..kernels import decode_attention
@@ -332,7 +333,219 @@ def attention_block(x, params, cfg_layer, positions, cache=None,
     eff_len = torch.clamp(new_len, max=C).to(torch.int32)
     qg = unflatten(q[:, 0], 1, (Hkv, H // Hkv)) if is_dtensor(q) else \
         q.reshape(B, Hkv, H // Hkv, Dh)
-    out = decode_attention(qg, ck, cv, eff_len, cap=cap,
-                           kernel_path=kernel_path)
-    out = out.reshape(B, S, H * Dh)
+    if is_dtensor(ck) and any(pl == Shard(1) for pl in ck.placements):
+        out = _decode_local(qg, ck, cv, eff_len, cap=cap,
+                            kernel_path=kernel_path)
+    else:
+        out = decode_attention(qg, ck, cv, eff_len, cap=cap,
+                               kernel_path=kernel_path)
+    out = _merge_heads(out)
     return tp_matmul(out, params["wo"]), dict(k=ck, v=cv, len=new_len)
+
+
+def _decode_local(qg, ck, cv, length, **kw):
+    """`decode_attention` on DTensors whose cache splits the kv heads,
+    run on each rank's local shards (each row and each kv head is
+    independent): the batch stays split where the cache splits it, the
+    heads where it splits them, every other mesh dim replicates.
+    DTensor's rule for the scores' product on those heads goes through
+    a data-dependent operation in some releases.  A cache split on its
+    sequence takes DTensor's own operations."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = ck.device_mesh
+    pls = [pl if pl in (Shard(0), Shard(1)) else Replicate()
+           for pl in ck.placements]
+    rows = [pl if pl == Shard(0) else Replicate() for pl in pls]
+    if not is_dtensor(length):      # every rank holds it alike (prefill's)
+        length = DTensor.from_local(length, mesh,
+                                    [Replicate()] * mesh.ndim)
+    length = length.redistribute(mesh, rows).to_local()
+    out = decode_attention(qg.redistribute(mesh, pls).to_local(),
+                           ck.redistribute(mesh, pls).to_local(),
+                           cv.redistribute(mesh, pls).to_local(), length,
+                           **kw)
+    return DTensor.from_local(out, mesh, pls)
+
+
+def _merge_heads(out):
+    """The decode attention's [B, Hkv, G, Dh] as [B, 1, H * Dh].  On a
+    DTensor whose heads are split (a cache sharded by heads), the heads
+    are flattened first and the unit dim added after: some releases
+    refuse to flatten a sharded dim into a reshape that also inserts a
+    dim."""
+    B = out.shape[0]
+    if is_dtensor(out):
+        return flatten(out, 1, 3).unsqueeze(1)
+    return out.reshape(B, 1, -1)
+
+
+# ------------------------------------------- recurrent blocks on shards --
+class _Split(NamedTuple):
+    """What this rank computes of a block: heads [h0, h1), value dims
+    [p0, p1) of each head, and the process group over which the output
+    norm's sum of squares is reduced (None: this rank holds every
+    feature)."""
+    heads: tuple
+    values: tuple
+    group: Optional[object] = None
+
+
+def _whole(H: int, P: int) -> _Split:
+    return _Split((0, H), (0, P))
+
+
+def _cols(w, H: int, P: int, sp: _Split, values: bool = True):
+    """Columns of weight [D, H*P] (per head, P wide) that `sp` computes:
+    its heads, and its value dims where `values`; `w` itself when it
+    has just those columns (every column, or a rank's shard of them)."""
+    (h0, h1), (p0, p1) = sp.heads, sp.values if values else (0, P)
+    if w.shape[-1] == (h1 - h0) * (p1 - p0):
+        return w
+    return w.unflatten(-1, (H, P))[:, h0:h1, p0:p1].flatten(-2)
+
+
+def _rows(w, H: int, P: int, sp: _Split):
+    """Rows of weight [H*P, D] (or of a vector [H*P]) that `sp`
+    computes; `w` itself when it has just those rows."""
+    (h0, h1), (p0, p1) = sp.heads, sp.values
+    if w.shape[0] == (h1 - h0) * (p1 - p0):
+        return w
+    return w.unflatten(0, (H, P))[h0:h1, p0:p1].flatten(0, 1)
+
+
+def _norm(h, weight, H: int, P: int, sp: _Split, eps: float = 1e-6):
+    """`rms_norm` over all H*P features, of which `h` holds the ones
+    `sp` computes: with a group, the sum of squares is summed over it."""
+    if sp.group is None:
+        return rms_norm(h, _rows(weight, H, P, sp), eps)
+    hf = h.float()
+    ss = _SumOver.apply(hf.square().sum(dim=-1, keepdim=True), sp.group)
+    out = hf * torch.rsqrt(ss / (H * P) + eps)
+    return (out * (1.0 + _rows(weight, H, P, sp).float())).to(h.dtype)
+
+
+class _SumOver(torch.autograd.Function):
+    """All-reduce (sum) over a process group, and the same for the
+    gradient: the summed value feeds every rank's own share of the
+    output, so its gradient is the sum of the ranks' gradients."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _psum(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _psum(grad, ctx.group), None
+
+
+def _psum(t, group):
+    ops = torch.ops._c10d_functional
+    return ops.wait_tensor(ops.all_reduce(t.contiguous(), "sum",
+                                          group.group_name))
+
+
+def _local_site(fn, x, params, state, H: int, P: int, value_split: bool,
+                value_dims, head_dims):
+    """``fn(x, params, state, split)`` -> (y, state) on DTensors, run on
+    each rank's local shards: a ``shard_map`` of the plain block, entered
+    and left once per call (a loop of DTensor operations would dispatch
+    each of the sLSTM's ~15 operations per token through DTensor, and
+    DTensor has no rule for some of the recurrent blocks' operations in
+    some releases: ``log_sigmoid``, the mLSTM's score products on
+    strided shards, ``flip`` in the backward of the SSD scan's
+    ``cumsum``, flattening the heads of a state).  The blocks: the
+    mLSTM and the sLSTM (`repro_torch.models.xlstm`) and the Mamba2
+    block (`repro_torch.models.ssm`), each sequence and each head
+    independent.
+
+    Per mesh dim: a data dim keeps the batch split where `x` splits it
+    (each sequence is independent) and replicates otherwise.  The tp
+    (last) dim splits:
+
+    - the heads where they divide it (rank r: heads [r H/n, (r+1) H/n));
+    - else, with `value_split`, the P-wide dim of every head (rank r:
+      [r P/n, (r+1) P/n)): for the mLSTM, q, k and the gates whole on
+      each rank, and v's columns, the matrix memory's rows, the
+      numerator, w_o's columns, the norm's slice and out_proj's rows
+      split, the normaliser n [B, H, P] whole on each rank (q's and
+      k's products repeat on every tp rank: no activation is gathered);
+      for the Mamba2 block, x's and the gate's columns, the state's P
+      rows and the output split, B, C and dt whole;
+    - else nothing: every tp rank computes the whole block.
+
+    When tp splits, the output norm's sum of squares is summed over tp
+    (one all-reduce, `_SumOver`) and out_proj's local rows give a
+    ``Partial`` output.  Each weight is gathered over the data axes
+    (FSDP's all-gather); where tp splits the heads, a weight split over
+    tp along its heads' dim (`head_dims`) keeps its shard, and every
+    other weight is gathered whole and sliced on the rank.  Their
+    gradients are partial sums over the dims that split the batch, and
+    over tp for the sliced ones; x's gradient is a partial sum over tp.
+    States [B, H, ...] (and the mLSTM memory's value dim
+    `value_dims[i]`) follow the same split, and an incoming state is
+    redistributed to it.  A state whole on every rank of a split tp dim
+    (the mLSTM's n in the value layout) feeds only the rank's share of
+    the output: its incoming gradient is a partial sum over tp, and each
+    rank takes 1/n of the gradient of the state it returns (all n ranks
+    return the same one).  On a tp dim of size one the local program is
+    the plain one."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = x.device_mesh
+    tp = mesh.ndim - 1
+    B = x.shape[0]
+    batch, nb = [], 1
+    for i in range(tp):
+        size = mesh.shape[i]
+        if x.placements[i] == Shard(0) and B % (nb * size) == 0:
+            nb *= size
+            batch.append(Shard(0))
+        else:
+            batch.append(Replicate())
+    size, r = mesh.shape[tp], mesh.get_local_rank(tp)
+    sp, mode = _whole(H, P), None
+    if size > 1 and H % size == 0:
+        sp, mode = _Split((r * H // size, (r + 1) * H // size), (0, P),
+                          mesh.get_group(tp)), "heads"
+    elif size > 1 and value_split and P % size == 0:
+        sp, mode = _Split((0, H), (r * P // size, (r + 1) * P // size),
+                          mesh.get_group(tp)), "values"
+    red = Partial() if mode else Replicate()
+    xl = x.redistribute(mesh, batch + [Replicate()]).to_local(
+        grad_placements=batch + [red])
+    dgrad = [Partial() if pl == Shard(0) else Replicate() for pl in batch]
+    wl = {}
+    for k, w in params.items():
+        if not is_dtensor(w):
+            wl[k] = w
+            continue
+        pl = Replicate()
+        if mode == "heads" and k in head_dims and (
+                w.placements[tp] == Shard(head_dims[k])):
+            pl = w.placements[tp]
+        wl[k] = w.redistribute(mesh, [Replicate()] * tp + [pl]).to_local(
+            grad_placements=dgrad + [pl if pl != Replicate() else red])
+
+    def placed(vdim):
+        if mode == "heads":
+            return batch + [Shard(1)]
+        if mode == "values" and vdim is not None:
+            return batch + [Shard(vdim)]
+        return batch + [Replicate()]
+
+    pls = [placed(d) for d in value_dims]
+    # the states whole on every rank of a split tp dim
+    whole = [mode is not None and pl[tp] == Replicate() for pl in pls]
+    if state is not None:
+        state = tuple(s.redistribute(mesh, pl).to_local(
+            grad_placements=batch + [Partial()] if w else pl)
+            if is_dtensor(s) else s for s, pl, w in zip(state, pls, whole))
+    y, state = fn(xl, wl, state, sp)
+    state = tuple(DTensor.from_local(s, mesh, pl)
+                  for s, pl in zip(state, pls))
+    for s, w in zip(state, whole):
+        if w and s.requires_grad:     # the gradient from outside only
+            s.register_hook(lambda g: g / size)
+    return DTensor.from_local(y, mesh, batch + [red]), state

@@ -723,7 +723,10 @@ def _stash_kv(kv_cache, kv_new, S):
     C = ck.shape[2]
     k_t = k.transpose(1, 2)
     v_t = v.transpose(1, 2)
-    if S <= C:
+    if is_dtensor(ck):
+        _stash_local(ck, k_t, S)
+        _stash_local(cv, v_t, S)
+    elif S <= C:
         ck[:, :, :S] = k_t.to(ck.dtype)
         cv[:, :, :S] = v_t.to(cv.dtype)
     else:
@@ -732,3 +735,26 @@ def _stash_kv(kv_cache, kv_new, S):
         cv.copy_(torch.roll(v_t[:, :, S - C:], shifts=roll, dims=2))
     length = torch.full((k.shape[0],), S, dtype=torch.int32, device=k.device)
     return dict(k=ck, v=cv, len=length)
+
+
+def _stash_local(cache, new, S: int) -> None:
+    """`_stash_kv`'s write into a DTensor ring cache [B, Hkv, C, Dh] from
+    new [B, Hkv, S, Dh], on each rank's local shards: DTensor's slice
+    assignment into a cache split on its slot dim writes the wrong slots
+    (ROADMAP Queue 3).  The batch and the heads stay split as the cache
+    splits them; each rank writes the slots it holds, slot j the last
+    position p < S with p % C == j."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh, pls = cache.device_mesh, cache.placements
+    C = cache.shape[2]
+    local = cache.to_local()
+    src = new.redistribute(mesh, [pl if pl in (Shard(0), Shard(1))
+                                  else Replicate() for pl in pls]).to_local()
+    _, off = compute_local_shape_and_global_offset(cache.shape, mesh, pls)
+    j = torch.arange(off[2], off[2] + local.shape[2], device=local.device)
+    p = j if S <= C else S - C + (j - (S - C)) % C
+    out = torch.where((p < S)[:, None], src[:, :, p.clamp(max=S - 1)],
+                      local)
+    cache.copy_(DTensor.from_local(out.to(cache.dtype), mesh, pls))

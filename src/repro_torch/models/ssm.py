@@ -10,7 +10,10 @@ attention-like weights, inter-chunk via a loop over chunks carrying the
 [B, H, P, N] state.  Decode is the one-step recurrence against a cached
 state.  The reference's three-operand contractions are written as an
 elementwise product followed by one batched product, so no
-[B, nc, L, L, H, P] intermediate is formed.
+[B, nc, L, L, H, P] intermediate is formed.  On DTensors the block and
+its decode step run on local shards (`repro_torch.models.layers.
+_local_site`: heads over tp where they divide, else each head's P
+dims).
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import rms_norm
+from ..dist.sharding import is_dtensor
+from .layers import _cols, _local_site, _norm, _rows, _Split, _whole
 
 __all__ = ["mamba2_scan", "mamba2_block", "mamba2_param_shapes",
            "mamba2_decode_step", "mamba2_init_state"]
@@ -36,6 +40,11 @@ def mamba2_param_shapes(d_model: int, n_heads: int, d_head: int,
     )
 
 
+# out_proj's rows are its heads' contiguous blocks (in_proj's columns
+# are five sections, each cut per head by `_in_proj`)
+_MAMBA_HEAD_DIMS = dict(out_proj=0)
+
+
 def _split_proj(z, n_heads, d_head, d_state):
     d_inner = n_heads * d_head
     xz, rest = z[..., : 2 * d_inner], z[..., 2 * d_inner:]
@@ -44,6 +53,24 @@ def _split_proj(z, n_heads, d_head, d_state):
               rest[..., 2 * d_state * n_heads:])
     b, c = torch.chunk(bc, 2, dim=-1)
     return x_in, gate, b, c, dt
+
+
+def _in_proj(x, w, H: int, P: int, N: int, sp: _Split):
+    """``_split_proj(x @ w)`` of the heads and P-wide dims `sp` computes:
+    x's and the gate's columns of those, B's, C's and dt's of those
+    heads (whole heads); the product takes only those columns."""
+    if sp.heads == (0, H) and sp.values == (0, P):
+        return _split_proj(x @ w, H, P, N)
+    heads = _Split(sp.heads, (0, N))
+    h0, h1 = sp.heads
+    cuts = [H * P, H * P, H * N, H * N]
+    sec = list(torch.split(w, cuts + [H], dim=-1))
+    w = torch.cat([_cols(sec[0], H, P, sp), _cols(sec[1], H, P, sp),
+                   _cols(sec[2], H, N, heads), _cols(sec[3], H, N, heads),
+                   sec[4][:, h0:h1]], dim=-1)
+    Hl, Pl = h1 - h0, sp.values[1] - sp.values[0]
+    z = x @ w
+    return torch.split(z, [Hl * Pl, Hl * Pl, Hl * N, Hl * N, Hl], dim=-1)
 
 
 def mamba2_scan(x_in, b, c, dt, a_log, d_skip, *, chunk: int = 128,
@@ -121,20 +148,43 @@ def mamba2_scan(x_in, b, c, dt, a_log, d_skip, *, chunk: int = 128,
 def mamba2_block(x, params, cfg, init_state=None, return_state=False):
     """x: [B, S, D_model] -> [B, S, D_model] (+ final SSD state)."""
     H, P, N = cfg["n_ssm_heads"], cfg["ssm_head_dim"], cfg["d_state"]
-    z = x @ params["in_proj"]
-    x_in, gate, b, c, dt = _split_proj(z, H, P, N)
+    if is_dtensor(x):
+        y, (h,) = _local_site(
+            lambda xl, wl, s, sp: _mamba2_block(
+                xl, wl, H, P, N, sp, s and s[0], True),
+            x, params, None if init_state is None else (init_state,), H, P,
+            True, (2,), _MAMBA_HEAD_DIMS)
+        return (y, h) if return_state else y
+    y, h = _mamba2_block(x, params, H, P, N, _whole(H, P), init_state,
+                         return_state)
+    return (y, h[0]) if return_state else y
+
+
+def _heads(v, H: int, sp: _Split):
+    """A per-head vector [H]'s entries of `sp`'s heads."""
+    h0, h1 = sp.heads
+    return v if (h0, h1) == (0, H) else v[h0:h1]
+
+
+def _mamba2_block(x, params, H: int, P: int, N: int, sp: _Split,
+                  init_state, return_state: bool):
+    """(y, the final state as a 1-tuple, or None without
+    `return_state`)."""
+    x_in, gate, b, c, dt = _in_proj(x, params["in_proj"], H, P, N, sp)
     B_, S, _ = x.shape
-    x_in = x_in.reshape(B_, S, H, P)
-    b = b.reshape(B_, S, H, N)
-    c = c.reshape(B_, S, H, N)
-    out = mamba2_scan(x_in, b, c, dt, params["a_log"], params["d_skip"],
+    Hl = sp.heads[1] - sp.heads[0]
+    x_in = x_in.reshape(B_, S, Hl, -1)
+    b = b.reshape(B_, S, Hl, N)
+    c = c.reshape(B_, S, Hl, N)
+    out = mamba2_scan(x_in, b, c, dt, _heads(params["a_log"], H, sp),
+                      _heads(params["d_skip"], H, sp),
                       init_state=init_state, return_state=return_state)
     y, h_final = out if return_state else (out, None)
-    y = y.reshape(B_, S, H * P).to(x.dtype)
+    y = y.reshape(B_, S, -1).to(x.dtype)
     y = y * F.silu(gate)
-    y = rms_norm(y, params["norm"])
-    y = y @ params["out_proj"]
-    return (y, h_final) if return_state else y
+    y = _norm(y, params["norm"], H, P, sp)
+    y = y @ _rows(params["out_proj"], H, P, sp)
+    return y, (h_final,) if return_state else None
 
 
 def mamba2_init_state(batch, cfg, dtype=torch.float32, device=None):
@@ -145,20 +195,31 @@ def mamba2_init_state(batch, cfg, dtype=torch.float32, device=None):
 def mamba2_decode_step(x, params, cfg, state):
     """One-token recurrence.  x: [B, 1, D]; state [B, H, P, N]."""
     H, P, N = cfg["n_ssm_heads"], cfg["ssm_head_dim"], cfg["d_state"]
-    z = x @ params["in_proj"]
-    x_in, gate, b, c, dt = _split_proj(z, H, P, N)
+    if is_dtensor(x):
+        y, (state,) = _local_site(
+            lambda xl, wl, s, sp: _mamba2_decode(xl, wl, H, P, N, sp, s),
+            x, params, (state,), H, P, True, (2,), _MAMBA_HEAD_DIMS)
+        return y, state
+    y, (state,) = _mamba2_decode(x, params, H, P, N, _whole(H, P), (state,))
+    return y, state
+
+
+def _mamba2_decode(x, params, H: int, P: int, N: int, sp: _Split, state):
+    x_in, gate, b, c, dt = _in_proj(x, params["in_proj"], H, P, N, sp)
     B_ = x.shape[0]
-    x_in = x_in.reshape(B_, H, P).float()
-    b = b.reshape(B_, H, N).float()
-    c = c.reshape(B_, H, N).float()
-    dt = F.softplus(dt.reshape(B_, H).float())
-    a = -torch.exp(params["a_log"].float())
+    Hl = sp.heads[1] - sp.heads[0]
+    x_in = x_in.reshape(B_, Hl, -1).float()
+    b = b.reshape(B_, Hl, N).float()
+    c = c.reshape(B_, Hl, N).float()
+    dt = F.softplus(dt.reshape(B_, Hl).float())
+    a = -torch.exp(_heads(params["a_log"], H, sp).float())
     decay = torch.exp(dt * a[None])                            # [B, H]
+    (state,) = state
     state = (state * decay[..., None, None]
              + (x_in * dt[..., None])[..., None] * b[:, :, None, :])
     y = torch.einsum("bhn,bhpn->bhp", c, state)
-    y = y + x_in * params["d_skip"].float()[None, :, None]
-    y = y.reshape(B_, 1, H * P).to(x.dtype)
+    y = y + x_in * _heads(params["d_skip"], H, sp).float()[None, :, None]
+    y = y.reshape(B_, 1, -1).to(x.dtype)
     y = y * F.silu(gate.reshape(B_, 1, -1))
-    y = rms_norm(y, params["norm"])
-    return y @ params["out_proj"], state
+    y = _norm(y, params["norm"], H, P, sp)
+    return y @ _rows(params["out_proj"], H, P, sp), (state,)

@@ -14,12 +14,17 @@ dispatch groups, held against the LIVE reference on the CPU.
   single-process port and the reference, int8 moment codes from
   identical gradients EQUAL to the single-process run's, and a
   checkpoint of the sharded parameters restored onto (4, 2) and (1, 8);
-  and, in the same world, the layouts only DTensors take
+  and, in the same world, every config's sharded step
   (`tools/mesh_worlds.py`'s cases: the context-parallel attention core,
-  group-local and expert-parallel MoE dispatch), each held by its loss,
-  every gradient and the step against the single-process port and the
-  reference;
-- on plain tensors the hints dispatch no operation.
+  group-local and expert-parallel MoE dispatch, the recurrent blocks
+  on local shards with their heads or per-head dims over tp), each
+  held by its loss, every gradient and the step against the
+  single-process port and the reference; for some cases also the
+  serving path (a prefill and decode steps on a sharded cache) and
+  the gradients through a carried state, against the single-process
+  port;
+- on plain tensors the hints and the local-shard sites dispatch no
+  operation, for every config.
 """
 
 import dataclasses
@@ -49,7 +54,8 @@ from repro_torch.train import TrainConfig, make_train_step
 from _torch_worlds import REPO, finish, start_world
 
 sys.path.insert(0, os.path.join(REPO, "tools"))
-from mesh_worlds import CASES, case_config  # noqa: E402
+from mesh_worlds import (CASES, SERVE_CASES, STATE_CASES,  # noqa: E402
+                         case_batch, case_config, serve, state_grads)
 
 # the zoo tests' bar: relative to the largest |value|
 RTOL = 1e-4
@@ -327,15 +333,21 @@ for shape in [(4, 2), (1, 8)]:
                  for p, x in tree_items(back))
     restored["x".join(map(str, shape))] = (placed, full(back))
 
-# 4. the paths that only DTensors take: context-parallel attention (the
-# queries' sequence split over tp, so each rank offsets its causal mask)
-# and the MoE dispatch on local tokens (group-local, or replicated under
-# expert parallelism); spies record which layout each call took
+# 4. every family's sharded step, and the paths that only DTensors take:
+# context-parallel attention (the queries' sequence split over tp, so
+# each rank offsets its causal mask), the MoE dispatch on local tokens
+# (group-local, or replicated under expert parallelism) and the xLSTM and
+# Mamba2 blocks on local shards (heads or value dims over tp, or whole);
+# spies record which layout each call took
 from torch.distributed.tensor import Shard
 import repro_torch.models.layers as L
 import repro_torch.models.moe as MO
+import repro_torch.models.ssm as SS
+import repro_torch.models.xlstm as XL
 taken = set()
-_flash, _layout = L._flash_local, MO._local_layout
+_flash, _layout, _site = L._flash_local, MO._local_layout, L._local_site
+BLOCK = {id(XL._MLSTM_HEAD_DIMS): "mlstm_", id(XL._SLSTM_HEAD_DIMS): "slstm_",
+         id(SS._MAMBA_HEAD_DIMS): "mamba_"}
 
 def flash_spy(q, k, v, seq_axes, **kw):
     out = _flash(q, k, v, seq_axes, **kw)
@@ -346,28 +358,55 @@ def layout_spy(x, router, group_local, dp_e):
     taken.add("group_local" if group_local else "replicated")
     return _layout(x, router, group_local, dp_e)
 
+def site_spy(fn, x, params, state, H, P, value_split, value_dims,
+             head_dims):
+    def spied(xl, wl, s, sp):
+        mode = ("whole" if sp.group is None else
+                "heads" if sp.values == (0, P) else "values")
+        taken.add(BLOCK[id(head_dims)] + mode)
+        return fn(xl, wl, s, sp)
+    return _site(spied, x, params, state, H, P, value_split, value_dims,
+                 head_dims)
+
 L._flash_local, MO._local_layout = flash_spy, layout_spy
-cases = {}
+XL._local_site = SS._local_site = site_spy
+sys.path.insert(0, open(OUT + "/tools_dir").read())
+import mesh_worlds as mw
+cases, extras = {}, {}
 for name, (arch, fields) in json.load(open(OUT + "/cases.json")).items():
     c = dataclasses.replace(reduced(get(arch)), scan_layers=True,
                             dp_axes=("data",), tp_axis="model", **fields)
     taken.clear()
     cp = shard_params(params_from_numpy(numpy_params(c, 0), c,
                                         device="cpu"), mesh, fsdp=True)
-    # the step's gradients (the same operations in the same order)
+    batch = {k: torch.from_numpy(v) for k, v in
+             np.load(OUT + f"/batch_{name}.npz").items()}
+    # the train step's two halves: the gradients, then the update
     with dtensor_scope(cp):
-        _, g = _value_and_grad(loss_fn, cp, _shard_batch(
-            dict(tokens=toks), cp), c)
-    grads = {key(p): x.full_tensor().numpy().copy()
-             for (p, _), x in zip(_leaves(cp), g)}
-    cp, _, cm = make_train_step(c, oc, TrainConfig())(
-        cp, init_opt_state(cp, oc), dict(tokens=toks))
-    cases[name] = (float(cm["loss"]), sorted(taken), full(cp), grads)
+        loss, g = _value_and_grad(loss_fn, cp, _shard_batch(batch, cp), c)
+        grads = {key(p): x.full_tensor().numpy().copy()
+                 for (p, _), x in zip(_leaves(cp), g)}
+        gt = _map_shapes(cp, lambda x: None)
+        for (p, _), x in zip(_leaves(cp), g):
+            _set(gt, p, x)
+        adamw_update(cp, gt, init_opt_state(cp, oc), oc)
+    cases[name] = (float(loss), sorted(taken), full(cp), grads)
+    # the serving path, and the gradients through a carried state, with
+    # the parameters before the step
+    extra = {}
+    cp = shard_params(params_from_numpy(numpy_params(c, 0), c,
+                                        device="cpu"), mesh, fsdp=True)
+    if name in mw.SERVE_CASES:
+        extra.update(mw.serve(c, cp, mesh))
+    if name in mw.STATE_CASES:
+        extra.update(mw.state_grads(c, cp))
+    extras[name] = extra
 
 if RANK == 0:
     for name, (_, _, tree, grads) in cases.items():
         np.savez(OUT + f"/case_{name}.npz", **tree)
         np.savez(OUT + f"/case_{name}_grads.npz", **grads)
+        np.savez(OUT + f"/case_{name}_extra.npz", **extras[name])
     json.dump({name: dict(loss=l, taken=t) for name, (l, t, _, _) in
                cases.items()}, open(OUT + "/cases_out.json", "w"))
     np.savez(OUT + "/step.npz", **stepped)
@@ -381,11 +420,23 @@ if RANK == 0:
 """
 
 
-# the layouts only DTensors take: `tools/mesh_worlds.py`'s cases (which
-# that tool runs on a host without jax), and the path each one takes
+# every family's sharded step and the layouts only DTensors take:
+# `tools/mesh_worlds.py`'s cases (which that tool runs on a host without
+# jax), and the paths each one takes
 CASE_PATHS = {"gemma2_seq_shard": ["seq_split"],
               "mixtral_group_local": ["group_local", "seq_whole"],
-              "mixtral_ep": ["replicated", "seq_whole"]}
+              "mixtral_ep": ["replicated", "seq_whole"],
+              "gemma3": ["seq_split"],
+              "h2o_danube": ["seq_split"],
+              "yi": ["seq_split"],
+              "llama4": ["replicated", "seq_split"],
+              "phi3_vision": ["seq_split"],
+              "whisper": ["seq_split", "seq_whole"],
+              "zamba2": ["mamba_values", "seq_split"],
+              "zamba2_heads": ["mamba_heads", "seq_split"],
+              "phi3_vision_kv_heads": ["seq_whole"],
+              "xlstm_heads": ["mlstm_heads", "slstm_heads"],
+              "xlstm_values": ["mlstm_values", "slstm_whole"]}
 assert set(CASE_PATHS) == set(CASES)
 
 
@@ -396,13 +447,13 @@ def _case_cfgs(name):
         dp_axes=("data",), tp_axis="model", **fields)
 
 
-def _single_step(cfg, tree, toks):
-    """One train step of the single-process port on plain tensors: the
-    loss, the parameters after it and the elements whose first-step
-    gradient is below SIGN_SENSITIVE_GRAD."""
+def _single_step(cfg, tree, batch):
+    """One train step of the single-process port on plain tensors (the
+    batch's numpy arrays): the loss, the parameters after it and the
+    elements whose first-step gradient is below SIGN_SENSITIVE_GRAD."""
     params = tm.params_from_numpy(tree, cfg, device="cpu")
     oc = AdamWConfig(**OPT)
-    batch = dict(tokens=torch.from_numpy(toks))
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
     leaves = [x.detach().requires_grad_(True) for _, x in tm._leaves(params)]
     lt = tm._map_shapes(params, lambda x: None)
     for (p, _), x in zip(tm._leaves(params), leaves):
@@ -446,15 +497,29 @@ def world(tmp_path_factory):
     np.savez(os.path.join(out, "grads.npz"), **grads)
     with open(os.path.join(out, "cases.json"), "w") as f:
         json.dump(CASES, f)
+    with open(os.path.join(out, "tools_dir"), "w") as f:
+        f.write(os.path.join(REPO, "tools"))
+    batches = {name: case_batch(_case_cfgs(name)[0], arrays=True)
+               for name in CASES}
+    for name, b in batches.items():
+        np.savez(os.path.join(out, f"batch_{name}.npz"), **b)
     procs = start_world(8, _WORLD, out)
     try:
         # the single-process runs, while the world works
-        single = _single_step(cfg, tree, toks)
+        single = _single_step(cfg, tree, dict(tokens=toks))
         single["cases"] = {}
         for name in CASES:
             c, _ = _case_cfgs(name)
             single["cases"][name] = _single_step(
-                c, tm.numpy_params(c, seed=0), toks)
+                c, tm.numpy_params(c, seed=0), batches[name])
+            params = tm.params_from_numpy(tm.numpy_params(c, seed=0), c,
+                                          device="cpu")
+            extra = {}
+            if name in SERVE_CASES:
+                extra.update(serve(c, params))
+            if name in STATE_CASES:
+                extra.update(state_grads(c, params))
+            single["cases"][name]["extra"] = extra
         oq = AdamWConfig(quantized_state=True, lr_peak=1e-3, warmup_steps=1)
         pq = tm.params_from_numpy(tree, cfg, device="cpu")
         gq = tm._map_shapes(pq, lambda x: None)
@@ -476,11 +541,12 @@ def world(tmp_path_factory):
     for name in CASES:
         cases[name]["params"] = load(f"case_{name}.npz")
         cases[name]["grads"] = load(f"case_{name}_grads.npz")
+        cases[name]["extra"] = load(f"case_{name}_extra.npz")
     return dict(single=single, res=res, step=load("step.npz"),
                 codes=load("codes.npz"), qparams=load("qparams.npz"),
                 restored={s: load(f"restored_{s}.npz")
                           for s in ("4x2", "1x8")}, tokens=toks,
-                cases=cases)
+                cases=cases, batches=batches)
 
 
 def test_sharded_train_step_loss_matches_single_and_reference(world):
@@ -530,9 +596,10 @@ def test_dtensor_paths_match_single_and_reference(world, name):
     assert abs(got["loss"] / single["loss"] - 1) < LOSS_RTOL
     cfg, jcfg = _case_cfgs(name)
     tree = tm.numpy_params(cfg, seed=0)
-    want = float(jax.jit(lambda p, t: jm.loss_fn(p, dict(tokens=t), jcfg))(
-        jax.tree.map(jnp.asarray, tree),
-        jnp.asarray(world["tokens"], jnp.int32)))
+    batch = {k: jnp.asarray(v, jnp.int32 if k == "tokens" else None)
+             for k, v in world["batches"][name].items()}
+    want = float(jax.jit(lambda p, b: jm.loss_fn(p, b, jcfg))(
+        jax.tree.map(jnp.asarray, tree), batch))
     assert abs(got["loss"] / want - 1) < LOSS_RTOL
     assert set(got["grads"]) == set(single["grads"])
     floor = 1e-4 * max(np.abs(g).max() for g in single["grads"].values())
@@ -550,6 +617,49 @@ def test_dtensor_paths_match_single_and_reference(world, name):
         np.testing.assert_allclose(got["params"][_key(p)], x.numpy(),
                                    rtol=TRAIN_RTOL, atol=TRAIN_ATOL,
                                    err_msg=_key(p))
+
+
+def _assert_extra_matches(world, name, kind):
+    """Every `kind` entry of the world's case `name` ("serve": logits
+    and cache leaves, "state": state gradients) within RTOL of the
+    single-process one's largest magnitude; integer leaves EQUAL."""
+    want = {k: v for k, v in world["single"]["cases"][name]["extra"].items()
+            if k.startswith(kind + "##")}
+    got = world["cases"][name]["extra"]
+    assert want and set(want) == {k for k in got
+                                  if k.startswith(kind + "##")}
+    for key, w in want.items():
+        if w.dtype.kind in "iu":
+            np.testing.assert_array_equal(got[key], w, err_msg=key)
+            continue
+        err = float(np.abs(got[key] - w).max()) / float(np.abs(w).max())
+        assert err < RTOL, (key, err)
+
+
+@pytest.mark.parametrize("name", SERVE_CASES)
+def test_dtensor_serving_matches_single(world, name):
+    """The serving path on the (2, 4) world (`tools/mesh_worlds.py::
+    serve`): a prefill into a decode cache laid out by `cache_specs`
+    (kv sequence over tp where the kv heads do not divide it, kv heads
+    otherwise; recurrent states by heads or value dims), then three
+    decode steps.  Each step's logits and every cache leaf after the
+    prefill and after the last step within RTOL of the single-process
+    port's; the lengths EQUAL.  Fails if the prefill's ring write into a
+    cache split on its sequence, or the decode attention on a cache
+    split by heads, goes through DTensor's own operations."""
+    _assert_extra_matches(world, name, "serve")
+
+
+@pytest.mark.parametrize("name", STATE_CASES)
+def test_dtensor_state_gradients_match_single(world, name):
+    """Gradients through a recurrent block's carried state on the (2, 4)
+    world (`tools/mesh_worlds.py::state_grads`): each kind of block from
+    a random initial state, the loss a random weighting of its output
+    and its final state; the gradients of the input, the block's weights
+    and the initial state within RTOL of the single-process port's.
+    Fails if a state that every tp rank holds whole (the mLSTM's n in
+    the value layout) takes a replicated gradient in or out."""
+    _assert_extra_matches(world, name, "state")
 
 
 def test_int8_moment_codes_equal_single_process(world):
@@ -590,21 +700,27 @@ class _Ops(TorchDispatchMode):
         return out
 
 
-@pytest.mark.parametrize("name", ["gemma2-2b", "mixtral-8x22b",
-                                  "llama4-maverick-400b-a17b"])
+@pytest.mark.parametrize("name", sorted(tcfgs.ARCHS))
 def test_hints_dispatch_nothing_on_plain_tensors(name):
     """The launcher's hints (data and tp axes, context-parallel
-    attention, expert-parallel or group-local MoE with one group) add no
-    operation to a train step or a decode step on plain tensors: the
-    aten sequence equals the one without hints."""
+    attention, expert-parallel or group-local MoE with one group) and
+    the local-shard sites (the attention core, the MoE dispatch, the
+    xLSTM blocks) add no operation to a train step, a prefill or a
+    decode step on plain tensors: the aten sequence equals the one
+    without hints, for every config."""
     cfg = dataclasses.replace(tcfgs.reduced(tcfgs.get(name)),
                               scan_layers=True)
     hinted = dataclasses.replace(
         cfg, dp_axes=("data",), tp_axis="model", attn_seq_shard=True,
         moe_ep=(cfg.n_experts % 4 == 0) if cfg.n_experts else None)
     tree = tm.numpy_params(cfg, seed=0)
-    toks = torch.from_numpy(np.random.default_rng(2).integers(
-        0, cfg.vocab, (2, 16)))
+    rng = np.random.default_rng(2)
+    batch = dict(tokens=torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                      (2, 16))))
+    key = dict(vision_stub="patches", audio_stub="frames").get(cfg.frontend)
+    if key is not None:
+        batch[key] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_frontend_tokens, cfg.d_model), dtype=np.float32))
     seqs = []
     for c in (cfg, hinted):
         params = tm.params_from_numpy(tree, c, device="cpu")
@@ -612,8 +728,8 @@ def test_hints_dispatch_nothing_on_plain_tensors(name):
         cache = tm.init_cache(c, 2, 32, dtype=torch.float32, device="cpu")
         with _Ops() as ops:
             make_train_step(c, oc, TrainConfig())(
-                params, init_opt_state(params, oc), dict(tokens=toks))
-            _, cache = tm.prefill(params, dict(tokens=toks), c, cache)
-            tm.decode_step(params, toks[:, :1], c, cache)
+                params, init_opt_state(params, oc), batch)
+            _, cache = tm.prefill(params, batch, c, cache)
+            tm.decode_step(params, batch["tokens"][:, :1], c, cache)
         seqs.append(ops.seq)
     assert seqs[0] == seqs[1]

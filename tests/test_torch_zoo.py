@@ -377,3 +377,42 @@ def test_long_prompt_across_chunks_zamba2_and_xlstm():
         assert _rel(lg, jlg) < RTOL, name
         _hold_tree(tc, jc, name)
 
+
+
+# every config in the scan layout: the reduced default depth (4 layers)
+# and 5 layers, which leave a tail of one layer after the stacked units
+# wherever the repeating unit has two layers
+SCAN_DEPTHS = [4, 5]
+
+
+@pytest.mark.parametrize("depth", SCAN_DEPTHS)
+@pytest.mark.parametrize("name", sorted(tcfgs.ARCHS))
+def test_scan_layout_matches_reference(name, depth):
+    """The stacked parameters (``scan_layers=True``; whisper, an
+    encoder-decoder, keeps the flat layout in both packages) through
+    forward, a 40-token prefill with the whole cache, and three decode
+    steps, against the live JAX run."""
+    cfg = dataclasses.replace(tcfgs.reduced(tcfgs.get(name), n_layers=depth),
+                              scan_layers=True)
+    jcfg = dataclasses.replace(jcfgs.reduced(jcfgs.get(name),
+                                             n_layers=depth),
+                               scan_layers=True)
+    tree = tm.numpy_params(cfg, seed=depth)
+    tp = tm.params_from_numpy(tree, cfg, device="cpu")
+    jp = jax.tree.map(jnp.asarray, tree)
+    jforward, jprefill, jdecode = _jitted(jcfg)
+    rng = np.random.default_rng(depth)
+    toks = rng.integers(0, cfg.vocab, (2, 43), dtype=np.int32)
+    tb, jb = _batch(cfg, toks[:, :40], rng)
+    assert _rel(tm.forward(tp, tb, cfg), jforward(jp, jb)) < RTOL
+    tc = tm.init_cache(cfg, 2, 64, torch.float32, device="cpu")
+    jc = jm.init_cache(jcfg, 2, 64, jnp.float32)
+    lg, tc = tm.prefill(tp, tb, cfg, tc)
+    jlg, jc = jprefill(jp, jb, jc)
+    assert _rel(lg, jlg) < RTOL
+    _hold_tree(tc, jc, "prefill")
+    for i in range(40, 43):
+        lg, tc = tm.decode_step(tp, _t(toks[:, i:i + 1]), cfg, tc)
+        jlg, jc = jdecode(jp, jnp.asarray(toks[:, i:i + 1]), jc)
+        assert _rel(lg, jlg) < RTOL, i
+    _hold_tree(tc, jc, "decode")
