@@ -52,6 +52,15 @@ Telemetry (`repro_torch.sim.telemetry`, opt-in through
 with it off the step issues exactly the operations it issues without
 the layer.
 
+Spans (`repro_torch.utils.spans`, off unless a recording is on): each
+cycle of a loop is one span ``repro_torch.sim.cycle``, opened after the
+source hears of the cycle; inside it the route choice (``.route``) and
+`alloc`'s five stages (``.desires``, with ``.ecmp`` nested, then
+``.allocate``, ``.fold``, ``.arrivals``, ``.compact``), which cover all
+of `alloc` but the opt-in telemetry block.  Each device-to-host read of
+a loop is a span ``.read_back`` and counts ``read_back``.  The spans
+mark stage boundaries only: no operation moves for them.
+
 Indexing.  jnp clamps an out-of-range gather index and wraps a negative
 one; torch raises on an index past the end and wraps a negative one.
 Every index below is clamped visibly -- garbage records in zero-filled
@@ -76,6 +85,7 @@ from ..core.routing import UNREACH
 from ..kernels import alloc_rounds, ugal_route
 from ..kernels.ref import bump_candidates
 from ..kernels._cuda import KERNEL_PATHS
+from ..utils.spans import count, span
 from .packed import (MAX_ROUTERS, PK, bump_hops_word, pack_record, pk_dst,
                      pk_hops, pk_inter, pk_msg, pk_phase, pk_time)
 from . import telemetry as tel
@@ -96,6 +106,16 @@ OCC_CAP = 1 << 20
 MODES = ("min", "val", "ugal_l", "ugal_g", "ecmp")
 
 I32 = torch.int32
+# the loops' span names (`repro_torch.utils.spans`)
+CYCLE = "repro_torch.sim.cycle"
+ROUTE = "repro_torch.sim.route"
+ECMP = "repro_torch.sim.ecmp"
+DESIRES = "repro_torch.sim.desires"
+ALLOCATE = "repro_torch.sim.allocate"
+FOLD = "repro_torch.sim.fold"
+ARRIVALS = "repro_torch.sim.arrivals"
+COMPACT = "repro_torch.sim.compact"
+READ_BACK = "repro_torch.sim.read_back"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -328,28 +348,30 @@ class SwitchCore:
         in phase 1 (ECMP picks its ports hop by hop, in `_desires`).  VAL
         draws one intermediate per endpoint, UGAL C candidates, from
         `source`'s ``route`` stream (`repro_torch.sim.random`)."""
-        mode, C, N, n_ep = self.mode, self.C, self.N, self.n_ep
-        src_r = self.ep_router
-        if mode in ("min", "ecmp"):
-            return dst_r, torch.ones_like(dst_r)
-        if mode == "val":
-            i = bump_candidates(source.randint("route", (n_ep,), 0, N),
-                                src_r, dst_r, N, (1, 1))
-            # degraded fabrics: only detour via intermediates that can
-            # still reach both endpoints; dead draws fall back to MIN
-            live = (self._dist32(self.src_rows, i)
-                    + self._dist32(self._table_rows(i), dst_r)) < int(UNREACH)
-            return torch.where(live, i, dst_r), (~live).to(I32)
+        with span(ROUTE):
+            mode, C, N, n_ep = self.mode, self.C, self.N, self.n_ep
+            src_r = self.ep_router
+            if mode in ("min", "ecmp"):
+                return dst_r, torch.ones_like(dst_r)
+            if mode == "val":
+                i = bump_candidates(source.randint("route", (n_ep,), 0, N),
+                                    src_r, dst_r, N, (1, 1))
+                # degraded fabrics: only detour via intermediates that can
+                # still reach both endpoints; dead draws fall back to MIN
+                live = (self._dist32(self.src_rows, i)
+                        + self._dist32(self._table_rows(i), dst_r)
+                        ) < int(UNREACH)
+                return torch.where(live, i, dst_r), (~live).to(I32)
 
-        # UGAL: score MIN against C random VAL candidates (live ones
-        # only): bumps, gathers, scores and the pick in one kernel launch
-        # for every lane on the card (`repro_torch.kernels.ref.
-        # ugal_route_ref` on the CPU)
-        cands = source.randint("route", (n_ep, C), 0, N)
-        return ugal_route(src_r, dst_r, cands, self.dist, self.port_toward,
-                          self.nbr, occ, ugal_g=(mode == "ugal_g"),
-                          unreach=int(UNREACH), big=BIG, occ_cap=OCC_CAP,
-                          kernel_path=self.kernel_path)
+            # UGAL: score MIN against C random VAL candidates (live ones
+            # only): bumps, gathers, scores and the pick in one kernel launch
+            # for every lane on the card (`repro_torch.kernels.ref.
+            # ugal_route_ref` on the CPU)
+            cands = source.randint("route", (n_ep, C), 0, N)
+            return ugal_route(src_r, dst_r, cands, self.dist, self.port_toward,
+                              self.nbr, occ, ugal_g=(mode == "ugal_g"),
+                              unreach=int(UNREACH), big=BIG, occ_cap=OCC_CAP,
+                              kernel_path=self.kernel_path)
 
     def ecmp_port(self, router, tgt, occ, router_state=None):
         """The least-occupied port of the equal-cost set toward `tgt`
@@ -360,17 +382,18 @@ class SwitchCore:
         on one lane's shared tables) broadcast against `tgt`.  Plain
         PyTorch, as the reference computes it in jnp: one gather of the
         [slots, M] rows, int16 ports and int32 scores and indices."""
-        P = self.P
-        st = router if router_state is None else router_state
-        opts = self.ecmp_rows.index_select(
-            0, (router.expand(tgt.shape) * self.N + tgt).reshape(-1))
-        at = (st.expand(tgt.shape) * P).reshape(-1, 1) + opts.clamp(min=0)
-        score = occ.reshape(-1).index_select(0, at.reshape(-1)).view(
-            at.shape)
-        del at
-        score.masked_fill_(opts < 0, BIG)
-        pick = score.argmin(dim=1, keepdim=True)
-        return opts.gather(1, pick).view(tgt.shape).to(I32)
+        with span(ECMP):
+            P = self.P
+            st = router if router_state is None else router_state
+            opts = self.ecmp_rows.index_select(
+                0, (router.expand(tgt.shape) * self.N + tgt).reshape(-1))
+            at = (st.expand(tgt.shape) * P).reshape(-1, 1) + opts.clamp(min=0)
+            score = occ.reshape(-1).index_select(0, at.reshape(-1)).view(
+                at.shape)
+            del at
+            score.masked_fill_(opts < 0, BIG)
+            pick = score.argmin(dim=1, keepdim=True)
+            return opts.gather(1, pick).view(tgt.shape).to(I32)
 
     def _desires(self, pkt, router, occ, rows=None):
         """Table-routed desires of window records: (out port, out VC,
@@ -472,94 +495,99 @@ class SwitchCore:
         # ---- the W-slot window: a static slice of the shift-down FIFOs
         # (zero-padded past the buffer end).  Every read of it below is
         # made before the in-place compaction at the end of the cycle.
-        def head_window(pkt_arr, depth):
-            win = pkt_arr[..., :min(W, depth), :]
-            if depth < W:
-                pad = torch.zeros(win.shape[:-2] + (W - depth, PK),
-                                  dtype=I32, device=self.device)
-                win = torch.cat([win, pad], dim=-2)
-            return win
-        win_net = head_window(nq_pkt, Qn)                    # [L,N,P,V,W,PK]
-        win_src = head_window(sq_pkt, Qs)                    # [L,n_ep,W,PK]
+        with span(DESIRES):
+            def head_window(pkt_arr, depth):
+                win = pkt_arr[..., :min(W, depth), :]
+                if depth < W:
+                    pad = torch.zeros(win.shape[:-2] + (W - depth, PK),
+                                      dtype=I32, device=self.device)
+                    win = torch.cat([win, pad], dim=-2)
+                return win
+            win_net = head_window(nq_pkt, Qn)                # [L,N,P,V,W,PK]
+            win_src = head_window(sq_pkt, Qs)                # [L,n_ep,W,PK]
 
-        if self.src_route is None:
-            n_out, n_vc, n_ej = self._desires(win_net, self.loc_r, occ,
-                                              (self.tab_r, self.st_r))
-            s_out, s_vc, s_ej = self._desires(win_src, self.loc_e, occ,
-                                              (self.tab_e, self.st_e))
-        else:
-            n_out, n_vc, n_ej = self._desires_src(win_net,
-                                                  self.src_lane_rows[0])
-            s_out, s_vc, s_ej = self._desires_src(win_src,
-                                                  self.src_lane_rows[1])
-        nq_rows = nq_count.reshape(L * N, P, V)
+            if self.src_route is None:
+                n_out, n_vc, n_ej = self._desires(win_net, self.loc_r, occ,
+                                                  (self.tab_r, self.st_r))
+                s_out, s_vc, s_ej = self._desires(win_src, self.loc_e, occ,
+                                                  (self.tab_e, self.st_e))
+            else:
+                n_out, n_vc, n_ej = self._desires_src(win_net,
+                                                      self.src_lane_rows[0])
+                s_out, s_vc, s_ej = self._desires_src(win_src,
+                                                      self.src_lane_rows[1])
+            nq_rows = nq_count.reshape(L * N, P, V)
 
-        def space_of(tab_r, st_r, out, vc):
-            o = out.clamp(0, P - 1)
-            dr = self.nbr_st_rows[st_r, o]
-            dp = self.rev_rows[tab_r, o]
-            depth = nq_rows[dr.clamp(min=0), dp.clamp(min=0), vc]
-            return (out >= 0) & (dr >= 0) & (depth < Qn)
-        n_sp = space_of(self.tab_r, self.st_r, n_out, n_vc)
-        s_sp = space_of(self.tab_e, self.st_e, s_out, s_vc)
+            def space_of(tab_r, st_r, out, vc):
+                o = out.clamp(0, P - 1)
+                dr = self.nbr_st_rows[st_r, o]
+                dp = self.rev_rows[tab_r, o]
+                depth = nq_rows[dr.clamp(min=0), dp.clamp(min=0), vc]
+                return (out >= 0) & (dr >= 0) & (depth < Qn)
+            n_sp = space_of(self.tab_r, self.st_r, n_out, n_vc)
+            s_sp = space_of(self.tab_e, self.st_e, s_out, s_vc)
 
         # ---- router-major request arrays for the allocation kernel
-        def rm_net(x):                       # [L,N,P,V,W] -> [L,N,PV,W]
-            return x.to(I32).reshape(L, N, PV, W).contiguous()
+        with span(ALLOCATE):
+            def rm_net(x):                       # [L,N,P,V,W] -> [L,N,PV,W]
+                return x.to(I32).reshape(L, N, PV, W).contiguous()
 
-        def rm_src(x):                       # [L,n_ep,W] -> [L,N,PE,W]
-            g = x.to(I32).reshape(L, n_epr, PE, W)[:, self.epr_c]
-            return torch.where(self.has_epr[:, None, None], g, 0)
+            def rm_src(x):                       # [L,n_ep,W] -> [L,N,PE,W]
+                g = x.to(I32).reshape(L, n_epr, PE, W)[:, self.epr_c]
+                return torch.where(self.has_epr[:, None, None], g, 0)
 
-        cnt_net = torch.where(self.nbr_live[..., None], nq_count,
-                              0).reshape(L, N, PV)
-        cs_rows = sq_count.reshape(L, n_epr, PE)[:, self.epr_c]
-        cnt_src = torch.where(self.has_epr[:, None], cs_rows, 0)
+            cnt_net = torch.where(self.nbr_live[..., None], nq_count,
+                                  0).reshape(L, N, PV)
+            cs_rows = sq_count.reshape(L, n_epr, PE)[:, self.epr_c]
+            cnt_src = torch.where(self.has_epr[:, None], cs_rows, 0)
 
-        chan_n, ej_n, chan_s, ej_s, win_req = alloc_rounds(
-            cycle, rm_net(n_out), rm_net(n_ej), rm_net(n_sp), cnt_net,
-            rm_src(s_out), rm_src(s_ej), rm_src(s_sp), cnt_src,
-            self.epr_index, W=W, P=P, V=V, PE=PE, p_budget=self.p,
-            NQ=self.NQ, R=self.R, kernel_path=self.kernel_path,
-            cycle_dev=cycle_dev)
-        cs_net = chan_n.reshape(L, N, P, V)           # granted window offset
-        ej_net = ej_n.reshape(L, N, P, V)             # (-1 = none), by kind
-        cs_src = chan_s[:, self.ep_block_router].reshape(L, n_ep)
-        ej_src = ej_s[:, self.ep_block_router].reshape(L, n_ep)
+            chan_n, ej_n, chan_s, ej_s, win_req = alloc_rounds(
+                cycle, rm_net(n_out), rm_net(n_ej), rm_net(n_sp), cnt_net,
+                rm_src(s_out), rm_src(s_ej), rm_src(s_sp), cnt_src,
+                self.epr_index, W=W, P=P, V=V, PE=PE, p_budget=self.p,
+                NQ=self.NQ, R=self.R, kernel_path=self.kernel_path,
+                cycle_dev=cycle_dev)
+            cs_net = chan_n.reshape(L, N, P, V)       # granted window offset
+            ej_net = ej_n.reshape(L, N, P, V)         # (-1 = none), by kind
+            cs_src = chan_s[:, self.ep_block_router].reshape(L, n_ep)
+            ej_src = ej_s[:, self.ep_block_router].reshape(L, n_ep)
 
         # ---- engine-specific ejection stats over the granted records
-        rec_net = win_net.gather(
-            4, ej_net.clamp(min=0).long()[..., None, None].expand(
-                L, N, P, V, 1, PK)).squeeze(4)
-        rec_src = win_src.gather(
-            2, ej_src.clamp(min=0).long()[..., None, None].expand(
-                L, n_ep, 1, PK)).squeeze(2)
-        eject_acc = eject_fold(eject_acc, ej_net, ej_src, rec_net, rec_src,
-                               cycle)
+        with span(FOLD):
+            rec_net = win_net.gather(
+                4, ej_net.clamp(min=0).long()[..., None, None].expand(
+                    L, N, P, V, 1, PK)).squeeze(4)
+            rec_src = win_src.gather(
+                2, ej_src.clamp(min=0).long()[..., None, None].expand(
+                    L, n_ep, 1, PK)).squeeze(2)
+            eject_acc = eject_fold(eject_acc, ej_net, ej_src, rec_net, rec_src,
+                                   cycle)
 
         # ---- arrivals, as a dense per-(lane, router, port) view: each
         # input port receives at most one packet per cycle, from its
         # unique upstream channel, whose winning request `win_req` names
         # it
-        u_r, u_p = self.up_r, self.up_p            # upstream router, port
-        wi = win_req.reshape(L * N, P)[u_r, u_p]      # winning request id
-        valid = self.nbr_live & (wi >= 0)
-        is_net = wi < PV
-        wi_n = wi.clamp(0, PV - 1)
-        eid = (self.up_ep0 + (wi - PV).clamp(min=0)).clamp(self.ep_lo,
-                                                           self.ep_hi)
-        slot = torch.where(is_net, chan_n.reshape(L * N, PV)[u_r, wi_n],
-                           cs_src.reshape(-1)[eid]).clamp(0, W - 1)
-        win_net_pm = win_net.reshape(L * N, PV, W, PK)
-        win_src_e = win_src.reshape(L * n_ep, W, PK)
-        pkt = torch.where(is_net[..., None], win_net_pm[u_r, wi_n, slot],
-                          win_src_e[eid, slot])               # [L,N,P,PK]
-        vc = torch.where(is_net, n_vc.reshape(L * N, PV, W)[u_r, wi_n, slot],
-                         s_vc.reshape(L * n_ep, W)[eid, slot])
-        here = self.routers_n[:, None]
-        w2 = bump_hops_word(pkt[..., 2], (here == pk_inter(pkt)).to(I32))
-        pkt = torch.cat([pkt[..., :2], w2[..., None]], dim=-1)
-        arrived = valid[..., None] & (self.vc_ids == vc[..., None])
+        with span(ARRIVALS):
+            u_r, u_p = self.up_r, self.up_p            # upstream router, port
+            wi = win_req.reshape(L * N, P)[u_r, u_p]      # winning request id
+            valid = self.nbr_live & (wi >= 0)
+            is_net = wi < PV
+            wi_n = wi.clamp(0, PV - 1)
+            eid = (self.up_ep0 + (wi - PV).clamp(min=0)).clamp(self.ep_lo,
+                                                               self.ep_hi)
+            slot = torch.where(is_net, chan_n.reshape(L * N, PV)[u_r, wi_n],
+                               cs_src.reshape(-1)[eid]).clamp(0, W - 1)
+            win_net_pm = win_net.reshape(L * N, PV, W, PK)
+            win_src_e = win_src.reshape(L * n_ep, W, PK)
+            pkt = torch.where(is_net[..., None], win_net_pm[u_r, wi_n, slot],
+                              win_src_e[eid, slot])               # [L,N,P,PK]
+            vc = torch.where(is_net,
+                             n_vc.reshape(L * N, PV, W)[u_r, wi_n, slot],
+                             s_vc.reshape(L * n_ep, W)[eid, slot])
+            here = self.routers_n[:, None]
+            w2 = bump_hops_word(pkt[..., 2], (here == pk_inter(pkt)).to(I32))
+            pkt = torch.cat([pkt[..., :2], w2[..., None]], dim=-1)
+            arrived = valid[..., None] & (self.vc_ids == vc[..., None])
 
         # ---- telemetry (data only: nothing below reads it), before the
         # dequeue so the counters see the cycle-start depths the kernel
@@ -579,27 +607,30 @@ class SwitchCore:
         # ---- dequeue + compaction, in place: removing the granted
         # packet at offset g is a shift of slots >= g by one; then the
         # arrival goes to the post-dequeue tail
-        g_net = torch.maximum(cs_net, ej_net)
-        g_src = torch.maximum(cs_src, ej_src)
-        deq_net = (g_net >= 0).to(I32)
-        deq_src = (g_src >= 0).to(I32)
+        with span(COMPACT):
+            g_net = torch.maximum(cs_net, ej_net)
+            g_src = torch.maximum(cs_src, ej_src)
+            deq_net = (g_net >= 0).to(I32)
+            deq_src = (g_src >= 0).to(I32)
 
-        up_net = torch.cat([nq_pkt[..., 1:, :],
-                            torch.zeros_like(nq_pkt[..., :1, :])], dim=-2)
-        drop_m = (g_net[..., None] >= 0) & (self.sidx_net >= g_net[..., None])
-        torch.where(drop_m[..., None], up_net, nq_pkt, out=nq_pkt)
-        tail = (nq_count - deq_net)[..., None]             # [L,N,P,V,1]
-        ins = arrived[..., None] & (self.sidx_net == tail)  # [L,N,P,V,Qn]
-        torch.where(ins[..., None], pkt[..., None, None, :], nq_pkt,
-                    out=nq_pkt)
+            up_net = torch.cat([nq_pkt[..., 1:, :],
+                                torch.zeros_like(nq_pkt[..., :1, :])], dim=-2)
+            drop_m = ((g_net[..., None] >= 0)
+                      & (self.sidx_net >= g_net[..., None]))
+            torch.where(drop_m[..., None], up_net, nq_pkt, out=nq_pkt)
+            tail = (nq_count - deq_net)[..., None]             # [L,N,P,V,1]
+            ins = arrived[..., None] & (self.sidx_net == tail)  # [L,N,P,V,Qn]
+            torch.where(ins[..., None], pkt[..., None, None, :], nq_pkt,
+                        out=nq_pkt)
 
-        up_src = torch.cat([sq_pkt[..., 1:, :],
-                            torch.zeros_like(sq_pkt[..., :1, :])], dim=-2)
-        s_drop = (g_src[..., None] >= 0) & (self.sidx_src >= g_src[..., None])
-        torch.where(s_drop[..., None], up_src, sq_pkt, out=sq_pkt)
+            up_src = torch.cat([sq_pkt[..., 1:, :],
+                                torch.zeros_like(sq_pkt[..., :1, :])], dim=-2)
+            s_drop = ((g_src[..., None] >= 0)
+                      & (self.sidx_src >= g_src[..., None]))
+            torch.where(s_drop[..., None], up_src, sq_pkt, out=sq_pkt)
 
-        nq_count += arrived.to(I32) - deq_net
-        sq_count -= deq_src
+            nq_count += arrived.to(I32) - deq_net
+            sq_count -= deq_src
         if tel_state is None:
             return nq_pkt, nq_count, sq_pkt, sq_count, eject_acc
         return nq_pkt, nq_count, sq_pkt, sq_count, eject_acc, tel_state
@@ -698,7 +729,8 @@ def simulate(tables: SimTables, traffic: Traffic, cfg: SimConfig,
     without a card unless ``device="cpu"`` is asked for).  Draws come
     from `source` (default: a `TorchSource` seeded with `cfg.seed`; a
     `ReplaySource` replays recorded draws).  The host reads the device
-    once, at the end.  One lane of `open_loop_lanes`."""
+    at the end only: two reads, one sync.  One lane of
+    `open_loop_lanes`."""
     dev = resolve_device(device)
     return open_loop_lanes(tables, traffic, [cfg], dev, [source])[0]
 
@@ -743,41 +775,45 @@ def open_loop_lanes(tables: SimTables, traffic: Traffic, cfgs: list,
 
     for cycle in range(cfg.cycles):
         source.begin_cycle(cycle)
-        occ = core.occupancy(nq_count)
+        with span(CYCLE):
+            occ = core.occupancy(nq_count)
 
-        # ---- injection (want and dropped read the cycle-start depths:
-        # inject updates sq_count in place)
-        coin = source.bernoulli("inj", rates, (n_ep,)) & active
-        want = coin & (sq_count < Qs)
-        dropped = (coin & ~want).sum(dim=1, dtype=I32)
-        # a permutation pattern's destinations are the same in every lane
-        dst_r = core.ep_router[sample(source)].expand(L, n_ep).contiguous()
-        inter, phase = core.route_decision(dst_r, occ, source)
-        new_pkt = pack_record(dst_r, inter, cycle, zeros_ep, phase)
-        sq_pkt, sq_count = core.inject(sq_pkt, sq_count, want, new_pkt)
+            # ---- injection (want and dropped read the cycle-start depths:
+            # inject updates sq_count in place)
+            coin = source.bernoulli("inj", rates, (n_ep,)) & active
+            want = coin & (sq_count < Qs)
+            dropped = (coin & ~want).sum(dim=1, dtype=I32)
+            # a permutation pattern's destinations are the same in every lane
+            dst_r = core.ep_router[sample(source)].expand(L, n_ep).contiguous()
+            inter, phase = core.route_decision(dst_r, occ, source)
+            new_pkt = pack_record(dst_r, inter, cycle, zeros_ep, phase)
+            sq_pkt, sq_count = core.inject(sq_pkt, sq_count, want, new_pkt)
 
-        # ---- telemetry at the injection point (data only)
-        if ts is not None and ts.counters is not None:
-            tel.counters.count_routes(ts.counters, want, phase)
+            # ---- telemetry at the injection point (data only)
+            if ts is not None and ts.counters is not None:
+                tel.counters.count_routes(ts.counters, want, phase)
 
-        # ---- shared switch pipeline with the open-loop fold
-        nq_pkt, nq_count, sq_pkt, sq_count, delivered, *_ = core.alloc(
-            nq_pkt, nq_count, sq_pkt, sq_count, occ, cycle,
-            _open_loop_fold(lat_w[cycle], W, offsets), None,
-            cycle_dev=cycles_dev[cycle:cycle + 1],
-            trace_extra=(want, new_pkt), **tel_kw)
+            # ---- shared switch pipeline with the open-loop fold
+            nq_pkt, nq_count, sq_pkt, sq_count, delivered, *_ = core.alloc(
+                nq_pkt, nq_count, sq_pkt, sq_count, occ, cycle,
+                _open_loop_fold(lat_w[cycle], W, offsets), None,
+                cycle_dev=cycles_dev[cycle:cycle + 1],
+                trace_extra=(want, new_pkt), **tel_kw)
 
-        src_occ = sq_count.sum(dim=1, dtype=I32)
-        torch.stack([want.sum(dim=1, dtype=I32), delivered, src_occ,
-                     dropped,
-                     nq_count.sum(dim=(1, 2, 3), dtype=I32) + src_occ],
-                    dim=1, out=stats[cycle])
+            src_occ = sq_count.sum(dim=1, dtype=I32)
+            torch.stack([want.sum(dim=1, dtype=I32), delivered, src_occ,
+                         dropped,
+                         nq_count.sum(dim=(1, 2, 3), dtype=I32) + src_occ],
+                        dim=1, out=stats[cycle])
 
     source.finish()
     check_i32(nq_pkt=nq_pkt, nq_count=nq_count, sq_pkt=sq_pkt,
               sq_count=sq_count, stats=stats, lat_w=lat_w)
-    st = stats.cpu().numpy()                         # the one host sync
-    lat_all = lat_w[:, :, :W].cpu().numpy()
+    # two reads, one host sync: the first waits for the device
+    with span(READ_BACK):
+        st = stats.cpu().numpy()
+        lat_all = lat_w[:, :, :W].cpu().numpy()
+    count("read_back", 2)
     out = []
     for i, c in enumerate(cfgs):
         s_i = st[:, i]

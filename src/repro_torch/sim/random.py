@@ -29,6 +29,9 @@ skip-self, shift's coin, VAL's and UGAL's bumps) is the port's own code.
   `TorchSource(seed_i)` is bit-identical to the sequential run with
   seed_i on the same device.  Draws of several lanes are never batched
   into one generator call, which would change what each lane gets.
+  Each of its calls is one span ``repro_torch.sim.draw``
+  (`repro_torch.utils.spans`) and counts ``draw.<stream>.calls`` (L
+  generator calls) and ``draw.<stream>.values`` (the values they drew).
 """
 
 from __future__ import annotations
@@ -38,10 +41,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.spans import count, span
+
 __all__ = ["STREAMS", "Draw", "TorchSource", "ReplaySource",
            "LaneSources"]
 
 STREAMS = ("inj", "dst", "route")
+DRAW = "repro_torch.sim.draw"
 
 
 def _check_stream(stream: str) -> None:
@@ -142,17 +148,23 @@ class LaneSources:
             s.begin_cycle(cycle)
 
     @staticmethod
-    def _stack(draws: list):
-        return draws[0][None] if len(draws) == 1 else torch.stack(draws)
+    def _stack(stream: str, draws: list):
+        out = draws[0][None] if len(draws) == 1 else torch.stack(draws)
+        count(f"draw.{stream}.calls", len(draws))
+        count(f"draw.{stream}.values", out.numel())
+        return out
 
     def bernoulli(self, stream: str, p, shape: tuple):
         ps = p if isinstance(p, (list, tuple)) else [p] * len(self.sources)
-        return self._stack([s.bernoulli(stream, pi, shape)
-                            for s, pi in zip(self.sources, ps, strict=True)])
+        with span(DRAW):
+            return self._stack(stream, [
+                s.bernoulli(stream, pi, shape)
+                for s, pi in zip(self.sources, ps, strict=True)])
 
     def randint(self, stream: str, shape: tuple, low: int, high: int):
-        return self._stack([s.randint(stream, shape, low, high)
-                            for s in self.sources])
+        with span(DRAW):
+            return self._stack(stream, [s.randint(stream, shape, low, high)
+                                        for s in self.sources])
 
     def finish(self) -> None:
         for s in self.sources:

@@ -42,6 +42,10 @@ counters and a per-lane trace ring, sampled by message, updated at the
 injection point and inside `SwitchCore.alloc`; the snapshot is
 normalised over the trimmed `cycles_run`.  The policy sweep refuses
 it, as the reference does.
+
+Spans (`repro_torch.utils.spans`): each cycle is a span
+``repro_torch.sim.cycle`` around `SwitchCore`'s own, and each read of
+the device (one per chunk, four at the end) a ``.read_back``.
 """
 
 from __future__ import annotations
@@ -54,7 +58,9 @@ import torch
 
 from ... import resolve_device
 from .. import telemetry as tel
-from ..engine import BIG, SimConfig, SwitchCore, check_i32
+from ...utils.spans import count, span
+from ..engine import (BIG, CYCLE, READ_BACK, SimConfig, SwitchCore,
+                      check_i32)
 from ..packed import MAX_JOB_MSGS, MAX_JOBS, MSG_JOB_SHIFT, pack_record, pk_msg
 from ..random import LaneSources, TorchSource
 from ..tables import SimTables
@@ -378,55 +384,57 @@ def _closed_loop(tables: SimTables, ops: _Ops, cfgs: list, dev, sources: list,
     def step(cycle: int):
         nonlocal nq_pkt, nq_count, sq_pkt, sq_count
         source.begin_cycle(cycle)
-        occ = core.occupancy(nq_count)
+        with span(CYCLE):
+            occ = core.occupancy(nq_count)
 
-        # ---- ready set over the DAG (dense mask, carried counters)
-        done = flits_del[:, :M] >= size                     # [L, M]
-        dep_done = (done.view(-1)[dep_idx] if ops.per_lane
-                    else done[:, dep_c])
-        dep_ok = torch.where(dep_live, dep_done, True).all(dim=2)
-        sendable = dep_ok & (sent[:, :M] < size)            # [L, M]
-        if admit_msg is not None:
-            sendable &= admit_msg <= cycle
+            # ---- ready set over the DAG (dense mask, carried counters)
+            done = flits_del[:, :M] >= size                     # [L, M]
+            dep_done = (done.view(-1)[dep_idx] if ops.per_lane
+                        else done[:, dep_c])
+            dep_ok = torch.where(dep_live, dep_done, True).all(dim=2)
+            sendable = dep_ok & (sent[:, :M] < size)            # [L, M]
+            if admit_msg is not None:
+                sendable &= admit_msg <= cycle
 
-        # ---- per-endpoint pick: the first sendable message in row
-        # order.  argmax of a bool mask is cast to int first; torch and
-        # jnp both return the first maximum
-        cand = mbe_live & (sendable.view(-1)[mbe_idx] if ops.per_lane
-                           else sendable[:, mbe_c])         # [L, n_ep, kmax]
-        has = cand.any(dim=2)                               # [L, n_ep]
-        slot = torch.argmax(cand.to(I32), dim=2, keepdim=True)
-        mpick = torch.where(has, mbe_l.gather(2, slot)[..., 0], 0)
+            # ---- per-endpoint pick: the first sendable message in row
+            # order.  argmax of a bool mask is cast to int first; torch and
+            # jnp both return the first maximum
+            cand = mbe_live & (sendable.view(-1)[mbe_idx] if ops.per_lane
+                               else sendable[:, mbe_c])     # [L, n_ep, kmax]
+            has = cand.any(dim=2)                               # [L, n_ep]
+            slot = torch.argmax(cand.to(I32), dim=2, keepdim=True)
+            mpick = torch.where(has, mbe_l.gather(2, slot)[..., 0], 0)
 
-        # ---- inject one flit
-        want = has & (sq_count < Qs)
-        if ops.per_lane:
-            dst_r, msg = dst_flat[mpick + lane_m], mpick
-        else:
-            dst_r, msg = dst_r_of_msg[mpick], ops.fid[mpick]
-        inter, phase = core.route_decision(dst_r, occ, source)
-        new_pkt = pack_record(dst_r, inter, cycle, zeros_ep, phase, msg=msg)
-        sq_pkt, sq_count = core.inject(sq_pkt, sq_count, want, new_pkt)
-        msel = lane_slots(torch.where(want, mpick, M)).long()  # M = drop
-        sent.view(-1).index_add_(0, msel, ones_ep)
-        start_c.view(-1).scatter_reduce_(
-            0, msel, torch.full_like(ones_ep, cycle), reduce="amin",
-            include_self=True)
+            # ---- inject one flit
+            want = has & (sq_count < Qs)
+            if ops.per_lane:
+                dst_r, msg = dst_flat[mpick + lane_m], mpick
+            else:
+                dst_r, msg = dst_r_of_msg[mpick], ops.fid[mpick]
+            inter, phase = core.route_decision(dst_r, occ, source)
+            new_pkt = pack_record(dst_r, inter, cycle, zeros_ep, phase,
+                                  msg=msg)
+            sq_pkt, sq_count = core.inject(sq_pkt, sq_count, want, new_pkt)
+            msel = lane_slots(torch.where(want, mpick, M)).long()  # M = drop
+            sent.view(-1).index_add_(0, msel, ones_ep)
+            start_c.view(-1).scatter_reduce_(
+                0, msel, torch.full_like(ones_ep, cycle), reduce="amin",
+                include_self=True)
 
-        # ---- telemetry at the injection point (data only)
-        if ts is not None and ts.counters is not None:
-            tel.counters.count_routes(ts.counters, want, phase)
+            # ---- telemetry at the injection point (data only)
+            if ts is not None and ts.counters is not None:
+                tel.counters.count_routes(ts.counters, want, phase)
 
-        # ---- shared switch pipeline with the per-message fold
-        nq_pkt, nq_count, sq_pkt, sq_count, delivered, *_ = core.alloc(
-            nq_pkt, nq_count, sq_pkt, sq_count, occ, cycle, fold,
-            torch.zeros((L,), dtype=I32, device=dev),
-            cycle_dev=cycles_dev[cycle:cycle + 1],
-            trace_extra=(want, new_pkt), **tel_kw)
+            # ---- shared switch pipeline with the per-message fold
+            nq_pkt, nq_count, sq_pkt, sq_count, delivered, *_ = core.alloc(
+                nq_pkt, nq_count, sq_pkt, sq_count, occ, cycle, fold,
+                torch.zeros((L,), dtype=I32, device=dev),
+                cycle_dev=cycles_dev[cycle:cycle + 1],
+                trace_extra=(want, new_pkt), **tel_kw)
 
-        now_done = flits_del[:, :M] >= size
-        done_c.masked_fill_(now_done & (done_c == BIG), cycle + 1)
-        return delivered
+            now_done = flits_del[:, :M] >= size
+            done_c.masked_fill_(now_done & (done_c == BIG), cycle + 1)
+            return delivered
 
     def done_counts():
         # per-job done-message counts [L, J] without a scatter: job
@@ -446,7 +454,9 @@ def _closed_loop(tables: SimTables, ops: _Ops, cfgs: list, dev, sources: list,
         for i in range(cfg.chunk):
             dlv[i] = step(t + i)
         dlv[cfg.chunk:] = done_counts().T
-        host = dlv.cpu().numpy()                    # one sync per chunk
+        with span(READ_BACK):
+            host = dlv.cpu().numpy()                # one sync per chunk
+        count("read_back")
         per_cycle_dlv.append(host[:cfg.chunk].T.astype(np.int64))
         t += cfg.chunk
         check_i32(nq_pkt=nq_pkt, nq_count=nq_count, sq_pkt=sq_pkt,
@@ -463,8 +473,10 @@ def _closed_loop(tables: SimTables, ops: _Ops, cfgs: list, dev, sources: list,
             torch.index_select(admit_dev, 0, job_idx, out=admit_msg)
     source.finish()
 
-    state = tuple(a[:, :M].cpu().numpy() for a in (sent, flits_del,
-                                                    start_c, done_c))
+    with span(READ_BACK):
+        state = tuple(a[:, :M].cpu().numpy() for a in (sent, flits_del,
+                                                        start_c, done_c))
+    count("read_back", len(state))
     return state, np.concatenate(per_cycle_dlv, axis=1), counts, t, ts
 
 

@@ -20,9 +20,9 @@ time it, then under `torch.profiler` (CPU and CUDA activities), and
 prints one JSON line: wall time per cycle, device busy time per cycle
 and the device's idle share, kernel launches per cycle, and the kernels
 with the most device time (`tools/torch_profile.py`); then, from one
-more profiled run in which `SwitchCore.ecmp_port` opens the profiler
-range "ecmp_choice", the device time per cycle of the kernels the ECMP
-choice launches (0 on tables without equal-cost sets).  Needs a CUDA
+more profiled run with the program's spans on, the device time per cycle
+of the kernels the ECMP choice launches inside its span
+`repro_torch.sim.ecmp` (0 on tables without equal-cost sets).  Needs a CUDA
 device.
 """
 
@@ -37,31 +37,24 @@ from torch_profile import profile_run  # noqa: E402  (tools/, beside this file)
 
 
 def ecmp_device_ms(run, n: int) -> float:
-    """Device ms per unit of the kernels launched inside
-    `SwitchCore.ecmp_port`, from a profiled `run()` (which does `n`
-    units) in which the method opens the range "ecmp_choice"; profiled
-    apart from `profile_run`, whose busy time would otherwise count the
-    range's own device-side span."""
+    """Device ms per unit of the kernels launched inside the span
+    `repro_torch.sim.ecmp` (`SwitchCore.ecmp_port`), from a profiled
+    `run()` (which does `n` units) under the program's
+    `repro_torch.utils.spans.recording()`; profiled apart from
+    `profile_run`, whose busy time would otherwise count the range's own
+    device-side span."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-    from repro_torch.sim import SwitchCore
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.sim.engine import ECMP
+    from repro_torch.utils.spans import recording
 
-    plain = SwitchCore.ecmp_port
-
-    def ranged(*a, **kw):
-        with record_function("ecmp_choice"):
-            return plain(*a, **kw)
-    SwitchCore.ecmp_port = ranged
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-    finally:
-        SwitchCore.ecmp_port = plain
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, recording():
+        run()
+        torch.cuda.synchronize()
     us = sum(ev.device_time_total for ev in prof.events()
-             if ev.name == "ecmp_choice" and ev.device_type == DeviceType.CPU)
+             if ev.name == ECMP and ev.device_type == DeviceType.CPU)
     return us / 1e3 / n
 
 
