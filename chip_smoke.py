@@ -6,7 +6,7 @@
 Phases, one JSON line each; any failure exits non-zero:
 
 1. device: the card's name, its power limit and clocks (nvidia-smi);
-2. build: the four CUDA sources compiled from
+2. build: the five CUDA sources compiled from
    `src/repro_torch/kernels/csrc` (one nvcc per source, all started
    together), with ptxas's resource report and the min-plus kernel's
    SASS opcode counts (cuobjdump);
@@ -120,9 +120,13 @@ Phases, one JSON line each; any failure exits non-zero:
     and UGAL-G, healthy and stale tables; min-plus on one squaring each
     of the DF h=7 (1,386^2) and FT-3 p=22 (1,452^2) seed matrices; times,
     plain times and bounds as phases 3, 7 and 8 give them.  Beside them
-    the ECMP choice (plain PyTorch, as in the reference): on the card
-    equal to the CPU on a captured FT-3 cycle and on forced ties, its
-    device time per cycle and its peak transient memory;
+    the ECMP kernel (one launch per window, through the core): equal to
+    the CPU's plain choice on a captured FT-3 cycle and on forced ties,
+    its device time per cycle and its plain version's; then at the
+    five-lane window shapes of cycle 300 of an FT-3 sweep (loads
+    0.1-0.9), the kernel against the plain version on the card, exact,
+    with both times, the bound (sfbench.roofline.ecmp_bytes at 3.35
+    TB/s) and each call's peak transient memory;
 19. paths_equal_fabrics: kernel_path="cuda" against "ref" with the same
     seed at a mid size (DF h=3, FT-3 p=6): open loop DF UGAL-L, FT-3
     ECMP, and MIN on stale FT-3 ECMP tables (a failure mask, routes not
@@ -313,9 +317,12 @@ version, its time, the plain version's time, its bound and what bounds
 it, and the library call's time where one exists (decode attention
 also in bfloat16 and at the serve profile's rows; allocation also at
 W=4; the UGAL row is the fused route kernel's, with the contract
-kernel's time under contract_ms); each simulator row also carries, under
-"fig6", its launches in the three phase-16 runs, its largest difference
-from the plain version at the new shapes (phase 18) and its times there;
+kernel's time under contract_ms; the ECMP row, a kernel that replaces no
+Pallas kernel, launches twice a cycle only on tables with equal-cost
+sets, so its launches on the q=19 paths are 0); each simulator row also
+carries, under "fig6", its launches in the three phase-16 runs, its
+largest difference from the plain version at the new shapes (phase 18)
+and its times there;
 the allocation and UGAL rows also carry, under "sweep", their launches
 in the five-lane sweep (phase 21) and phase 20's lane-axis difference
 and times at L = 1 and L = 5; the three simulator rows carry, under
@@ -1216,6 +1223,82 @@ def dead_min_with_alternates(tab) -> int:
     return int((dead & alt.any(axis=-1)).sum())
 
 
+# the cycle of phase 18's five-lane FT-3 sweep whose ECMP calls are held
+SNAP5 = 300
+
+
+def peak_transient(fn) -> int:
+    """Device bytes allocated at the peak of one call of `fn`, above what
+    was allocated before it (its output included)."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def ecmp_five_lanes(core, tab) -> dict:
+    """Phase 18's ECMP kernel at the benchmark's shapes: both windows of
+    cycle SNAP5 of a five-lane FT-3 p=22 sweep (loads 0.1-0.9, shared
+    tables: [N, 1, 1, 1] table rows and [5, N, 1, 1, 1] state rows against
+    [5, N, P, V, W] targets; [n_ep, 1] and [5, n_ep, 1] against [5, n_ep,
+    W]).  The kernel against `ecmp_port_ref`, exact; its device time,
+    the plain version's, the bound (sfbench.roofline.ecmp_bytes at 3.35
+    TB/s: targets in, ports out, each distinct row and the credit view
+    once) and each call's peak transient memory."""
+    import torch
+    from repro_torch.kernels.ecmp import ecmp_port_cuda, ecmp_port_ref
+    from repro_torch.sim import (SimConfig, SwitchCore, make_traffic,
+                                 sweep_simulate)
+    from sfbench.roofline import ecmp_bytes
+    real, calls, cap = SwitchCore.ecmp_port, [0], []
+
+    def capture(c, router, tgt, occ, state=None):
+        if calls[0] in (2 * SNAP5, 2 * SNAP5 + 1):
+            cap.append((router.clone(), tgt.clone(), occ.clone(),
+                        state.clone()))
+        calls[0] += 1
+        return real(c, router, tgt, occ, state)
+    _, _, _, _, pattern, cfg = FIG6["ft3_uniform"]
+    SwitchCore.ecmp_port = capture
+    try:
+        sweep_simulate(tab, make_traffic(tab, pattern),
+                       SimConfig(**dict(cfg, cycles=SNAP5 + 1, warmup=0)),
+                       rates=SWEEP_RATES)
+    finally:
+        SwitchCore.ecmp_port = real
+    assert len(cap) == 2, len(cap)
+    N, M = tab.n_routers, tab.ecmp_ports.shape[-1]
+    kw = dict(n_targets=N, big=BIG_I)
+    out, err = {}, 0.0
+    for win, (router, tgt, occ, state) in zip(("network", "source"), cap):
+        args = (core.ecmp_rows, router, tgt, occ, state)
+        want = ecmp_port_ref(*args, **kw)
+        err = max(err, exact_diff(ecmp_port_cuda(*args, **kw), want))
+        rows = (router.expand(tgt.shape).long() * N + tgt).reshape(-1)
+        nbytes = ecmp_bytes(tgt.numel(), int(torch.unique(rows).numel()), M,
+                            occ.numel())
+        ms = time_ms(lambda: ecmp_port_cuda(*args, **kw), iters=50)
+        bound_ms = 1e3 * nbytes / PEAK_BYTES_S
+        out[win] = dict(
+            shape=list(tgt.shape), slots=tgt.numel(),
+            empty_rows=int((want < 0).sum()), ms=ms,
+            plain_ms=time_ms(lambda: ecmp_port_ref(*args, **kw), iters=5),
+            bytes=nbytes, bound_ms=bound_ms, bound_share=bound_ms / ms,
+            transient_bytes=peak_transient(lambda: ecmp_port_cuda(*args,
+                                                                  **kw)),
+            plain_transient_bytes=peak_transient(
+                lambda: ecmp_port_ref(*args, **kw)))
+    assert err == 0.0, err
+    return dict(snap_cycle=SNAP5, lanes=len(SWEEP_RATES), max_abs_err=err,
+                ms_per_cycle=sum(w["ms"] for w in out.values()),
+                plain_ms_per_cycle=sum(w["plain_ms"] for w in out.values()),
+                bound_ms_per_cycle=sum(w["bound_ms"] for w in out.values()),
+                **out)
+
+
 def fig6_phases(dev, sm_max_mhz: float) -> dict:
     """Phases 16-19: Fig 6's other fabrics at full width, held against the
     reference's values; the kernels at their new shapes; kernel path
@@ -1227,6 +1310,7 @@ def fig6_phases(dev, sm_max_mhz: float) -> dict:
     from repro_torch.core import bfs_all_pairs, topologies
     from repro_torch.kernels import ops
     from repro_torch.kernels.alloc import alloc_rounds_cuda, alloc_rounds_ref
+    from repro_torch.kernels.ecmp import ecmp_port_ref
     from repro_torch.kernels.minplus import minplus_cuda, minplus_ref
     from repro_torch.kernels.ugal import ugal_route_cuda, ugal_route_ref
     from repro_torch.sim import (SimConfig, SimTables, SwitchCore, engine,
@@ -1253,7 +1337,8 @@ def fig6_phases(dev, sm_max_mhz: float) -> dict:
         ugal = cfg["mode"].startswith("ugal")
         want = {"minplus": MINPLUS_PER_BUILD, "alloc_rounds": cfg["cycles"],
                 "ugal_route": cfg["cycles"] if ugal else 0,
-                "ugal_select": 0, "decode_attention": 0}
+                "ugal_select": 0, "decode_attention": 0,
+                "ecmp_port": 2 * cfg["cycles"] if ecmp else 0}
         apsp_ok = bool(np.array_equal(rt.dist, bfs_all_pairs(topo.adj)))
         emit({"phase": "fig6_fabrics", "run": name, "topology": topo.name,
               "routers": topo.n_routers, "endpoints": topo.n_endpoints,
@@ -1414,17 +1499,20 @@ def fig6_phases(dev, sm_max_mhz: float) -> dict:
         mp_times[name.split("_")[0]] = minplus_times(d0, sm_max_mhz)
         del d0
 
-    # the ECMP choice (plain PyTorch on the card, as the reference's jnp):
-    # equal to the CPU's on the captured FT-3 cycle and with every queue
-    # empty (every set a tie: its first live port wins); its device time
-    # per cycle (both windows) and the transient memory of one call
+    # the ECMP kernel (csrc/ecmp.cu) through the core, one launch a call:
+    # equal to the CPU's plain choice on the captured FT-3 cycle and with
+    # every queue empty (every set a tie: its first live port wins); its
+    # device time per cycle (both windows) beside the plain version's
     core_gpu = cap_ecmp[0][0]
     core_cpu = SwitchCore(ft_tab, SimConfig(mode="ecmp", lookahead=6),
                           device="cpu")
+    ekw = dict(n_targets=ft_tab.n_routers, big=BIG_I)
     err_ecmp, n_tied = 0.0, 0
     for _, router, tgt, occ_e in cap_ecmp:
         for o in (occ_e, torch.zeros_like(occ_e)):
+            before = kernels.launch_counts()["ecmp_port"]
             got = core_gpu.ecmp_port(router, tgt, o).cpu()
+            assert kernels.launch_counts()["ecmp_port"] == before + 1
             want = core_cpu.ecmp_port(router.cpu(), tgt.cpu(), o.cpu())
             err_ecmp = max(err_ecmp, exact_diff(got, want))
         rows = core_cpu.ecmp_rows.index_select(
@@ -1435,18 +1523,16 @@ def fig6_phases(dev, sm_max_mhz: float) -> dict:
     slots = [int(c[2].numel()) for c in cap_ecmp]
     e_ms = [time_ms(lambda: core_gpu.ecmp_port(*c[1:]), iters=20)
             for c in cap_ecmp]
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    core_gpu.ecmp_port(*cap_ecmp[0][1:])
-    torch.cuda.synchronize()
-    e_transient = torch.cuda.max_memory_allocated() - base
+    e_plain_ms = [time_ms(lambda: ecmp_port_ref(core_gpu.ecmp_rows, *c[1:],
+                                                **ekw), iters=10)
+                  for c in cap_ecmp]
     M = ft_tab.ecmp_ports.shape[-1]
     ecmp = dict(max_abs_err=err_ecmp, ms_per_cycle=sum(e_ms),
                 ms_network_window=e_ms[0], ms_source_window=e_ms[1],
-                slots=slots, width=M, elements_per_cycle=sum(slots) * M,
-                transient_bytes_network_window=e_transient,
-                tied_slots_checked=n_tied)
+                plain_ms_per_cycle=sum(e_plain_ms), slots=slots, width=M,
+                elements_per_cycle=sum(slots) * M,
+                tied_slots_checked=n_tied,
+                five_lanes=ecmp_five_lanes(core_gpu, ft_tab))
     emit({"phase": "fig6_kernels", "equal": True, "snap_cycle": snap,
           "alloc": {"cases": [c[0] for c in acases], "max_abs_err": err_alloc,
                     "ft3_no_endpoint_router_share": no_ep_share,
@@ -1693,7 +1779,8 @@ def sweep_phases(dev, ctx: dict) -> dict:
     # allocation and the route choice once per cycle for all five lanes
     assert launches_sweep == {"minplus": 0, "alloc_rounds": n,
                               "ugal_route": n, "ugal_select": 0,
-                              "decode_attention": 0}, launches_sweep
+                              "decode_attention": 0, "ecmp_port": 0}, \
+        launches_sweep
 
     # ---- 22. kernel path against plain path at q=7: a rate-lane and a
     # stacked-mask sweep (UGAL-G), a closed-loop seed/mask sweep (UGAL-L);
@@ -3663,7 +3750,7 @@ def main() -> int:
 
     # ---- 2. build
     t0 = time.perf_counter()
-    sources = ["minplus", "alloc", "ugal", "attn_decode"]
+    sources = ["minplus", "alloc", "ugal", "attn_decode", "ecmp"]
     secs = _cuda.build(sources)
     ptxas = {k: [ln.strip() for ln in _cuda.build_log(k).splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -4166,9 +4253,12 @@ def main() -> int:
              zoo={"launches": zoo},
              mesh_train={"launches": launches_mesh["decode_attention"]},
              **report["decode_attention"]),
+        dict(name="ecmp_port", route="cuda", source=src + "ecmp.cu",
+             replaces=None, launches=launches_open["ecmp_port"],
+             launches_closed_loop=launches["ecmp_port"], bound_by="bytes",
+             library_ms=None, fig6=fig6_entry("ecmp_port", "ecmp_choice"),
+             mesh_train={"launches": launches_mesh["ecmp_port"]}),
     ]
-    emit({"ecmp_choice": fig6["ecmp_choice"],
-          "note": "plain PyTorch, as the reference's jnp; not a kernel"})
     emit({"wall_s": time.perf_counter() - t_all})
     print(smi_line, flush=True)
     emit({"kernels": rows})

@@ -23,7 +23,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["BUILD_DIR", "KERNEL_PATHS", "build", "build_log", "library",
-           "library_path", "launch_function", "use_kernel",
+           "library_path", "launch_function", "launch_range", "use_kernel",
            "check_cuda_tensor"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -117,6 +117,16 @@ def launch_function(name: str, symbol: str, argtypes: list):
         fn.restype = ctypes.c_int
         _FNS[(name, symbol)] = fn
     return fn
+
+
+def launch_range(name: str):
+    """A host range named `name` to make a launch in: a PyTorch operation,
+    not a user annotation, so the profiler attributes the kernel's device
+    time to it and to every range around it.  A kernel launched through
+    ctypes inside no PyTorch operation carries no correlation to a host
+    operation, and the profiler leaves it out of every range's device
+    time (a `record_function` range does not link kernels)."""
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 def use_kernel(kernel_path: str, t: torch.Tensor) -> bool:

@@ -22,6 +22,10 @@ oracles in `repro.kernels.ref`, with these deliberate differences:
   UGAL branch of `repro.sim.engine.SwitchCore.route_decision` from the
   drawn candidates on (bumps, gathers, `ugal_select_ref`, the pick), the
   contract of the fused kernel `csrc/ugal.cu::ugal_route_kernel`.
+- `ecmp_port_ref` replaces no Pallas kernel either: it is the ECMP
+  choice that the reference computes in jnp inside
+  `repro.sim.engine.SwitchCore._desires`, the contract of
+  `csrc/ecmp.cu`.
 
 `decode_attention_ref` is the reference's oracle as it stands: one
 float32 softmax over every position, masked with -inf (the kernel skips
@@ -34,7 +38,8 @@ import torch
 
 __all__ = ["BIG_F", "KSHIFT", "minplus_ref", "alloc_rounds_ref",
            "bump_candidates", "ugal_path_terms", "ugal_route_ref",
-           "ugal_select_ref", "decode_attention_ref", "default_scale"]
+           "ugal_select_ref", "ecmp_port_ref", "decode_attention_ref",
+           "default_scale"]
 
 BIG_F = 3.0e38   # +inf stand-in of the distance matrices (inf-free sums)
 
@@ -332,6 +337,34 @@ def ugal_route_ref(src_r, dst_r, cands, dist, port_toward, nbr, occ,
     inters = torch.cat([dst_r[..., None], cands], dim=-1)
     inter = inters.gather(-1, best[..., None].long())[..., 0]
     return inter, (best == 0).to(torch.int32)
+
+
+def ecmp_port_ref(rows, router, tgt, occ, router_state=None, *,
+                  n_targets: int, big: int):
+    """The least-occupied port of the equal-cost set toward `tgt` (the
+    first of them on a tie, as jnp.argmin), -1 where the set is empty.
+
+      rows: [R, M] int16      equal-cost ports of table row router *
+                              n_targets + target, -1 padded
+      router: int32           table rows, broadcasting against tgt
+      tgt: int32              target routers
+      occ: [.., P] int32      the lane-flattened credit view
+      router_state: int32     state rows into occ (default `router`, as
+                              on one lane's shared tables), broadcasting
+                              against tgt
+    A pad scores `big`, and so does a dead port through `occ`.  Returns
+    int32 shaped as tgt.  One gather of the [slots, M] rows, int16 ports
+    and int32 scores and indices, as the reference computes it in jnp."""
+    P = occ.shape[-1]
+    st = router if router_state is None else router_state
+    opts = rows.index_select(
+        0, (router.expand(tgt.shape) * n_targets + tgt).reshape(-1))
+    at = (st.expand(tgt.shape) * P).reshape(-1, 1) + opts.clamp(min=0)
+    score = occ.reshape(-1).index_select(0, at.reshape(-1)).view(at.shape)
+    del at
+    score.masked_fill_(opts < 0, big)
+    pick = score.argmin(dim=1, keepdim=True)
+    return opts.gather(1, pick).view(tgt.shape).to(torch.int32)
 
 
 def _mul_wrap32(a, b):

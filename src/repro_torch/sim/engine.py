@@ -9,7 +9,8 @@ UGAL-G; the whole UGAL choice in one launch of the CUDA kernel
 into the source queues (`inject`), and `alloc`: one W-slot window of
 every queue, route desires for all W slots at once (on tables with
 equal-cost sets, the least-occupied equal-cost port: ECMP's choice,
-and MIN's fallback from a dead port), W rounds of
+and MIN's fallback from a dead port, one launch of the CUDA kernel
+`repro_torch.kernels.ecmp` per window on the card), W rounds of
 rotating-priority allocation (the CUDA kernel
 `repro_torch.kernels.alloc` on the card), then arrivals and shift-down
 compaction.  The model and the two identities that make the
@@ -83,6 +84,7 @@ import torch
 from .. import resolve_device
 from ..core.routing import UNREACH
 from ..kernels import alloc_rounds, ugal_route
+from ..kernels.ecmp import ecmp_port as ecmp_choice
 from ..kernels.ref import bump_candidates
 from ..kernels._cuda import KERNEL_PATHS
 from ..utils.spans import count, span
@@ -379,21 +381,15 @@ class SwitchCore:
         empty.  An empty slot scores BIG, and so does a dead port
         through `occupancy`.  `router` (table rows) and `router_state`
         (state rows into the lane-flattened `occ`; default `router`, as
-        on one lane's shared tables) broadcast against `tgt`.  Plain
-        PyTorch, as the reference computes it in jnp: one gather of the
-        [slots, M] rows, int16 ports and int32 scores and indices."""
+        on one lane's shared tables) broadcast against `tgt`.  One
+        launch of the CUDA kernel `repro_torch.kernels.ecmp` on the card,
+        which scores each slot's row in registers; on the CPU its plain
+        version, the reference's jnp computation
+        (`repro_torch.kernels.ref.ecmp_port_ref`)."""
         with span(ECMP):
-            P = self.P
-            st = router if router_state is None else router_state
-            opts = self.ecmp_rows.index_select(
-                0, (router.expand(tgt.shape) * self.N + tgt).reshape(-1))
-            at = (st.expand(tgt.shape) * P).reshape(-1, 1) + opts.clamp(min=0)
-            score = occ.reshape(-1).index_select(0, at.reshape(-1)).view(
-                at.shape)
-            del at
-            score.masked_fill_(opts < 0, BIG)
-            pick = score.argmin(dim=1, keepdim=True)
-            return opts.gather(1, pick).view(tgt.shape).to(I32)
+            return ecmp_choice(self.ecmp_rows, router, tgt, occ, router_state,
+                               n_targets=self.N, big=BIG,
+                               kernel_path=self.kernel_path)
 
     def _desires(self, pkt, router, occ, rows=None):
         """Table-routed desires of window records: (out port, out VC,

@@ -122,8 +122,15 @@ class SimTables:
                    ecmp_ports=None) -> "SimTables":
         """Tables from numpy arrays built elsewhere -- e.g. the fields of
         a reference `repro.sim.SimTables`, so that both engines can run
-        on identical tables.  Dtypes are normalised to the engine's."""
+        on identical tables.  Dtypes are normalised to the engine's.
+        Each row of `ecmp_ports` must hold its -1 pads after its ports,
+        as both packages build them (the ECMP kernel stops at the first
+        pad, `repro_torch.kernels.ecmp`); a row that does not raises."""
         nbr = np.asarray(nbr, dtype=np.int32)
+        if ecmp_ports is not None:
+            e = np.asarray(ecmp_ports)
+            if ((e[..., 1:] >= 0) & (e[..., :-1] < 0)).any():
+                raise ValueError("ecmp_ports: a port follows a -1 pad")
         return cls(topo=topo, n_routers=nbr.shape[0], P=nbr.shape[1],
                    p=int(topo.p), nbr=nbr,
                    rev_port=np.asarray(rev_port, dtype=np.int32),

@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels.alloc import alloc_rounds_cuda, alloc_rounds_ref
 from repro_torch.kernels.attn_decode import (decode_attention_cuda,
                                              decode_attention_ref)
+from repro_torch.kernels.ecmp import ecmp_port_cuda, ecmp_port_ref
 from repro_torch.kernels.minplus import minplus_cuda, minplus_ref
 from repro_torch.kernels.ugal import (ugal_route_cuda, ugal_route_ref,
                                       ugal_select_cuda, ugal_select_ref)
@@ -695,9 +696,10 @@ def _fat_tree_cores(device, kind):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["healthy", "stale"])
 def test_ecmp_choice_on_the_card_matches_the_cpu(cuda_device, kind):
-    """The ECMP choice (plain PyTorch) takes the same first minimum on the
-    card as on the CPU, for every (router, target) pair, under forced
-    ties (empty queues, depths in {0, 1}) and spread depths."""
+    """The ECMP kernel (one launch per call through the core) takes the
+    same first minimum on the card as the plain choice on the CPU, for
+    every (router, target) pair, under forced ties (empty queues, depths
+    in {0, 1}) and spread depths."""
     tab, core, core_cpu = _fat_tree_cores(cuda_device, kind)
     N, P = tab.n_routers, tab.P
     r = torch.arange(N, dtype=torch.int32).repeat_interleave(N)
@@ -708,13 +710,58 @@ def test_ecmp_choice_on_the_card_matches_the_cpu(cuda_device, kind):
             np.int32))
         occ_cpu = core_cpu.occupancy(nq)
         want = core_cpu.ecmp_port(r, t, occ_cpu)
-        got = core.ecmp_port(r.to(cuda_device), t.to(cuda_device),
-                             core.occupancy(nq.to(cuda_device)))
+        r_d, t_d = r.to(cuda_device), t.to(cuda_device)
+        occ = core.occupancy(nq.to(cuda_device))
+        before = ecmp_port_cuda.launches
+        got = core.ecmp_port(r_d, t_d, occ)
+        assert ecmp_port_cuda.launches == before + 1
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
         if high == 1 and kind == "healthy":
             first = torch.from_numpy(tab.ecmp_ports.reshape(N * N, -1)[:, 0])
             torch.testing.assert_close(want, first.to(torch.int32),
                                        rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fabric", ["ft22_shared", "ft6_stacked"])
+def test_ecmp_kernel_matches_plain_at_window_shapes(cuda_device, fabric):
+    """A cycle's two calls at five lanes on the card, kernel against plain
+    version, exact: FT-3 p=22's shapes on shared tables (the benchmark's
+    cell: [N, 1, 1, 1] table rows and [5, N, 1, 1, 1] state rows against
+    [5, N, P, V, 6] targets; [n_ep, 1] and [5, n_ep, 1] against [5, n_ep,
+    6]) and FT-3 p=6 on stacked healthy, masked and stale tables (table
+    rows l N + r of lanes whose widths may differ), under random depths
+    and forced ties (every queue empty; depths in {0, 1})."""
+    from repro_torch.core.topologies import build_fattree3
+    from repro_torch.sim import SimConfig, SimTables, SwitchCore
+    from repro_torch.sim.engine import BIG as BIG_S
+    if fabric == "ft22_shared":
+        tab = SimTables.build(build_fattree3(p=22), device=cuda_device,
+                              ecmp=True)
+        tl, L = tab, 5
+    else:
+        lanes = _lane_tables("ft6")
+        tl, L = SimTables.stack(lanes + lanes[:2]), 5
+    W = 6
+    core = SwitchCore(tl, SimConfig(mode="ecmp", lookahead=W),
+                      device=cuda_device, lanes=L)
+    N, P, V, n_ep = core.N, core.P, core.V, core.n_ep
+    g = torch.Generator(device=cuda_device).manual_seed(22)
+    kw = dict(n_targets=N, big=BIG_S)
+    for high in (1, 2, 17):
+        nq = torch.randint(0, high, (L, N, P, V), generator=g,
+                           device=cuda_device, dtype=torch.int32)
+        occ = core.occupancy(nq)
+        for rows, st, shape in ((core.tab_r, core.st_r, (L, N, P, V, W)),
+                                (core.tab_e, core.st_e, (L, n_ep, W))):
+            tgt = torch.randint(0, N, shape, generator=g, device=cuda_device,
+                                dtype=torch.int32)
+            before = ecmp_port_cuda.launches
+            got = core.ecmp_port(rows, tgt, occ, st)
+            assert ecmp_port_cuda.launches == before + 1
+            want = ecmp_port_ref(core.ecmp_rows, rows, tgt, occ, st, **kw)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+            assert bool((want < 0).any()) and bool((want >= 0).any())
 
 
 @pytest.mark.cuda
@@ -751,6 +798,10 @@ def test_fabric_open_loop_kernel_path_matches_plain_path(cuda_device, case):
             300 if path == "cuda" else 0)
         assert after["ugal_route"] - before["ugal_route"] == (
             300 if path == "cuda" and mode == "ugal_l" else 0)
+        # the ECMP choice: one launch per window and cycle on the fat
+        # tree's tables (ECMP, and MIN's fallback on stale tables)
+        assert after["ecmp_port"] - before["ecmp_port"] == (
+            600 if path == "cuda" and case.startswith("ft") else 0)
     assert runs[0].delivered > 0
     for f, v in vars(runs[0]).items():
         np.testing.assert_array_equal(v, getattr(runs[1], f), err_msg=f)
@@ -905,6 +956,10 @@ def test_sweep_kernel_path_matches_plain_path(cuda_device, mode):
     assert after["alloc_rounds"] - before["alloc_rounds"] == 200
     assert after["ugal_route"] - before["ugal_route"] == (
         200 if mode == "ugal_g" else 0)
+    # two ECMP launches a cycle for all lanes on the fat tree's tables,
+    # none on Slim Fly's (no equal-cost sets)
+    assert after["ecmp_port"] - before["ecmp_port"] == (
+        400 if mode == "ecmp" else 0)
     for k, r in zip(rk, rr):
         for f, v in vars(k).items():
             assert np.array_equal(v, getattr(r, f)), f

@@ -160,7 +160,7 @@ def test_cpu_tensor_never_launches_a_kernel():
     alloc_rounds(cycle, *(torch.from_numpy(v) for v in arrs.values()), **kw)
     assert launch_counts() == {"minplus": 0, "alloc_rounds": 0,
                                "ugal_route": 0, "ugal_select": 0,
-                               "decode_attention": 0}
+                               "decode_attention": 0, "ecmp_port": 0}
     # forcing the kernel on a CPU tensor raises; it never falls back
     with pytest.raises(ValueError):
         minplus(torch.from_numpy(a), torch.from_numpy(b), kernel_path="cuda")
