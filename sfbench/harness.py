@@ -15,9 +15,11 @@ Everything that belongs to one cell is data, found by name:
 - `sfbench/metrics/<metric>.py`: a per-layer metric's reader
   (`read(run) -> float or None`), and the span it reads, if any.
 
-A run drives the program only through `repro_torch.core.build_slimfly`,
-`repro_torch.core.topologies.build_fattree3`, `repro_torch.sim.
-SimTables.build`, `make_traffic`, `SimConfig` and `sweep_simulate`.
+A run drives the program only through the fabric's builder named in
+`PROGRAM_FABRICS` (`repro_torch.core.build_slimfly`,
+`repro_torch.core.topologies.build_fattree3` or `build_dragonfly`),
+`repro_torch.sim.SimTables.build`, `make_traffic`, `SimConfig` and
+`sweep_simulate`.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from . import check
 from .spans import Tracer
 
 __all__ = ["ROOT", "load_cell", "lane_seed", "lanes_of", "run_cell",
-           "result_line", "FORBIDDEN"]
+           "result_line", "FORBIDDEN", "PROGRAM_FABRICS", "program_fabric"]
 
 ROOT = Path(__file__).resolve().parents[1]
 BENCH = Path(__file__).resolve().parent
@@ -43,6 +45,14 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 WARM_CYCLES = 8           # cycles of the set-up's warm-up sweep
 TRACE_CYCLES = 50         # cycles of each traced stretch, after warm-up
 MASK63 = (1 << 63) - 1
+# a configuration's `topology` -> the program's builder (module, function)
+# and the keyword that takes its `size`; the reference builds the same
+# names (`reference.fabric.BUILDERS`)
+PROGRAM_FABRICS = {
+    "slimfly": ("repro_torch.core", "build_slimfly", "q"),
+    "fattree3": ("repro_torch.core.topologies", "build_fattree3", "p"),
+    "dragonfly": ("repro_torch.core.topologies", "build_dragonfly", "h"),
+}
 
 
 def load_cell(name: str, manifest: dict) -> dict:
@@ -54,6 +64,7 @@ def load_cell(name: str, manifest: dict) -> dict:
     w = cells[name]
     conf = next(c for c in manifest["configs"] if c["name"] == w["config"])
     cfg = json.loads((ROOT / conf["file"]).read_text())
+    _fabric_entry(cfg["topology"])
     traffic = json.loads((BENCH / "traffic" / f"{w['traffic']}.json")
                          .read_text())
 
@@ -99,13 +110,23 @@ def _forbidden_loaded() -> list:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
+def _fabric_entry(topology: str) -> tuple:
+    if topology not in PROGRAM_FABRICS:
+        raise ValueError(f"sfbench runs no topology {topology!r} "
+                         f"(only {sorted(PROGRAM_FABRICS)})")
+    return PROGRAM_FABRICS[topology]
+
+
+def program_fabric(topology: str, size: int):
+    """The program's `Topology` of a configuration's fabric."""
+    module, builder, key = _fabric_entry(topology)
+    return getattr(importlib.import_module(module), builder)(**{key: size})
+
+
 def build_program(cfg: dict, traffic: dict, dev):
     """The program's set-up: fabric, tables (timed), traffic, config."""
-    from repro_torch.core import build_slimfly
-    from repro_torch.core.topologies import build_fattree3
     from repro_torch.sim import SimConfig, SimTables, make_traffic
-    topo = (build_slimfly(cfg["size"]) if cfg["topology"] == "slimfly"
-            else build_fattree3(p=cfg["size"]))
+    topo = program_fabric(cfg["topology"], cfg["size"])
     t0 = time.perf_counter()
     tables = SimTables.build(topo, device=dev, ecmp=traffic["mode"] == "ecmp")
     tables_s = time.perf_counter() - t0
@@ -137,6 +158,12 @@ def reference_inputs(cfg: dict, traffic: dict, dev):
                          device=dev)
     if traffic["pattern"] == "uniform":
         rt = {"pattern": "uniform"}
+    elif traffic["pattern"] == "worstcase_df":
+        if cfg["topology"] != "dragonfly":
+            raise ValueError("worstcase_df needs a dragonfly, not "
+                             f"{cfg['topology']!r}")
+        a, p_df, g = fabric.dragonfly_shape(cfg["size"])
+        rt = {"pattern": "worstcase_df", "a": a, "p": p_df, "g": g}
     elif traffic["pattern"] == "worstcase_sf":
         dst_of, active = rtraffic.worstcase_sf(tab, int(traffic["link_seed"]))
         rt = {"pattern": "worstcase_sf", "dst_of": dst_of, "active": active}
@@ -146,13 +173,16 @@ def reference_inputs(cfg: dict, traffic: dict, dev):
 
 
 class _OneDraw:
-    """A random source that returns one given destination draw."""
+    """A random source that returns one given destination draw, and
+    keeps the range it was asked for."""
 
     def __init__(self, draw):
         self.draw = draw
+        self.asked = None
 
     def randint(self, stream, shape, low, high):
         assert stream == "dst" and tuple(shape) == tuple(self.draw.shape)
+        self.asked = (low, high)
         return self.draw
 
     def bernoulli(self, stream, p, shape):
@@ -163,22 +193,28 @@ def traffic_numbers(tables, tr, rt: dict, seed: int, dev) -> int:
     """`check.traffic_mismatch` of the program's traffic against the
     reference's."""
     import torch
-    from .reference.traffic import uniform_dst
+    from .reference.traffic import drawn
     n_ep = tables.n_endpoints
     sample = tr.make_sampler(dev)
-    if rt["pattern"] == "uniform":
+    draw_dst = drawn(rt, n_ep)
+    off_range = 0
+    if draw_dst is not None:
+        high, to_dst = draw_dst
         g = torch.Generator(device=dev)
         g.manual_seed(int(seed))
-        draw = torch.randint(0, n_ep - 1, (n_ep,), generator=g, device=dev,
+        draw = torch.randint(0, high, (n_ep,), generator=g, device=dev,
                              dtype=torch.int32)
-        prog_dst = sample(_OneDraw(draw)).cpu().numpy()
-        ref_dst = uniform_dst(draw).cpu().numpy()
+        source = _OneDraw(draw)
+        prog_dst = sample(source).cpu().numpy()
+        ref_dst = to_dst(draw).cpu().numpy()
         ref_active = np.ones(n_ep, dtype=bool)
+        # a sampler that draws on another range draws other numbers
+        off_range = 0 if source.asked == (0, high) else n_ep
     else:
         prog_dst = sample(None).cpu().numpy()
         ref_dst, ref_active = rt["dst_of"], rt["active"]
-    return check.traffic_mismatch(np.asarray(tr.active, dtype=bool), prog_dst,
-                                  ref_active, ref_dst)
+    return off_range + check.traffic_mismatch(
+        np.asarray(tr.active, dtype=bool), prog_dst, ref_active, ref_dst)
 
 
 def _spans(per_layer: list) -> dict:

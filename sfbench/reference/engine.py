@@ -51,8 +51,9 @@ latency their summed latency over their count.
 
 Random draws come, per lane, from one `torch.Generator` on the run's
 device seeded with the lane's seed: per cycle first the coins (`rand`
-of [n_ep]), then for uniform traffic the destinations (`randint` on
-[0, n_ep - 1) of [n_ep], int32), then for UGAL-L the candidates
+of [n_ep]), then for drawn traffic the destinations (`randint` of
+[n_ep], int32: on [0, n_ep - 1) for uniform, on [0, a p) for
+worstcase_df; `traffic.drawn`), then for UGAL-L the candidates
 (`randint` on [0, N) of [n_ep, C], int32).
 """
 
@@ -61,7 +62,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .traffic import uniform_dst
+from .traffic import drawn
 
 __all__ = ["BIG", "OCC_CAP", "simulate_lanes"]
 
@@ -266,8 +267,9 @@ def simulate_lanes(tab: dict, traffic: dict, cfg: dict, rates, seeds,
     """Run len(rates) lanes of the open loop.
 
     tab     : the reference's tables (`routing.tables`)
-    traffic : {"pattern": "uniform"} or {"pattern": .., "dst_of": [n_ep],
-              "active": [n_ep]} (a fixed permutation)
+    traffic : a drawn pattern (`traffic.drawn`: every endpoint active) or
+              {"pattern": .., "dst_of": [n_ep], "active": [n_ep]} (a
+              fixed permutation)
     cfg     : cycles, warmup, vcs, q_net, q_src, lookahead, mode
               ("min", "ecmp" or "ugal_l"), n_val_candidates
     Returns one dict per lane: the scalar results and the per-cycle
@@ -284,8 +286,9 @@ def simulate_lanes(tab: dict, traffic: dict, cfg: dict, rates, seeds,
         g = torch.Generator(device=dev)
         g.manual_seed(int(s))
         gens.append(g)
-    uniform = traffic["pattern"] == "uniform"
-    if uniform:
+    draw_dst = drawn(traffic, n_ep)
+    if draw_dst is not None:
+        high, to_dst = draw_dst
         active = torch.ones(n_ep, dtype=torch.bool, device=dev)
     else:
         active = torch.as_tensor(traffic["active"], device=dev)
@@ -319,11 +322,11 @@ def simulate_lanes(tab: dict, traffic: dict, cfg: dict, rates, seeds,
                             for g, r in zip(gens, rate_l)]) & active
         want = coin & (sq_cnt < Qs)
         dropped = (coin & ~want).sum(1)
-        if uniform:
-            draw = torch.stack([torch.randint(0, n_ep - 1, (n_ep,),
-                                              generator=g, device=dev,
-                                              dtype=I32) for g in gens])
-            dst_ep = uniform_dst(draw).long()
+        if draw_dst is not None:
+            draw = torch.stack([torch.randint(0, high, (n_ep,), generator=g,
+                                              device=dev, dtype=I32)
+                                for g in gens])
+            dst_ep = to_dst(draw).long()
         else:
             dst_ep = fixed_dst.expand(L, n_ep)
         dst_r = f.ep_router[dst_ep]                           # [L, n_ep]

@@ -1,4 +1,4 @@
-"""The two fabrics of the paper's Fig 6, built from their definitions.
+"""The fabrics of the paper's Fig 6, built from their definitions.
 
 - `slimfly(q)`: the MMS graph (Besta & Hoefler, SC'14, §II-B) for a
   PRIME q = 4w + delta: routers {0,1} x Z_q x Z_q, numbered
@@ -12,6 +12,12 @@
   core routers; edge router i of pod g links to every aggregation router
   of pod g, aggregation router j of pod g to core group j; endpoints
   (p each) only on the edge routers.
+- `dragonfly(h)`: the balanced Dragonfly (Kim et al., ISCA'08):
+  a = 2h routers per group, p = h endpoints per router, g = a h + 1
+  groups (`dragonfly_shape`); router j of group i is router i a + j.
+  Each group is a full clique.  Global port k < h of router j in group
+  i links to group (i + s) mod g, where s = j h + k + 1, and there to
+  router (g - s - 1) // h; so every pair of groups shares one link.
 
 A fabric is (adjacency [N, N] bool, endpoints per router p, the routers
 that hold endpoints, ascending).  Plain numpy.
@@ -21,7 +27,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["slimfly", "fattree3", "build"]
+__all__ = ["slimfly", "fattree3", "dragonfly", "dragonfly_shape", "BUILDERS",
+           "build"]
 
 
 def _is_prime(q: int) -> bool:
@@ -87,10 +94,35 @@ def fattree3(p: int):
     return adj, p, np.arange(n_level)
 
 
+def dragonfly_shape(h: int):
+    """(a, p, g) of the balanced Dragonfly of global degree h."""
+    a = 2 * h
+    return a, h, a * h + 1
+
+
+def dragonfly(h: int):
+    a, p, g = dragonfly_shape(h)
+    n = a * g
+    adj = np.zeros((n, n), dtype=bool)
+    for grp in range(g):
+        adj[grp * a:(grp + 1) * a, grp * a:(grp + 1) * a] = True
+    i = np.arange(g)[:, None, None]
+    j = np.arange(a)[None, :, None]
+    s = j * h + np.arange(h)[None, None, :] + 1             # 1 .. g - 1
+    far = ((i + s) % g) * a + (g - s - 1) // h
+    adj[np.broadcast_to(i * a + j, far.shape), far] = True
+    np.fill_diagonal(adj, False)
+    assert (adj == adj.T).all(), "Dragonfly global links are not symmetric"
+    assert (adj.sum(axis=1) == a - 1 + h).all(), "Dragonfly degree is not 3h-1"
+    return adj, p, np.arange(n)
+
+
+BUILDERS = {"slimfly": slimfly, "fattree3": fattree3, "dragonfly": dragonfly}
+
+
 def build(topology: str, size: int):
     """(adj, p, endpoint routers) of a configuration's fabric."""
-    if topology == "slimfly":
-        return slimfly(size)
-    if topology == "fattree3":
-        return fattree3(size)
-    raise ValueError(f"unknown topology {topology!r}")
+    if topology not in BUILDERS:
+        raise ValueError(f"the reference builds no topology {topology!r} "
+                         f"(only {sorted(BUILDERS)})")
+    return BUILDERS[topology](size)

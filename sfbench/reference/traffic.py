@@ -1,8 +1,18 @@
-"""Destinations of the two traffic patterns the cells send (paper §V).
+"""Destinations of the traffic patterns the cells send (paper §V).
+
+Two are drawn anew in every cycle, from one draw per endpoint
+(`drawn`):
 
 - uniform: every endpoint injects; a destination is drawn uniformly
   among the OTHER endpoints: a draw d on [0, n_ep - 1) becomes d + 1
   where d >= the source's own id.
+- worstcase_df (Kim et al., ISCA'08, §4.2): every endpoint injects; an
+  endpoint of Dragonfly group G sends to endpoint d of group
+  (G + 1) mod g, d a draw on [0, a p) (endpoints numbered p to a
+  router, a routers to a group, groups in order).  Every group's
+  traffic crosses the one global link to its successor.
+
+One is a fixed permutation:
 - worstcase_sf (§V-C): the link Rx -> Ry loaded most by 2-hop MIN
   paths.  The search samples min(N, 64) routers Rx with numpy's
   `default_rng(link_seed).choice(N, size, replace=False)` and tries the
@@ -19,13 +29,35 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["uniform_dst", "worstcase_sf"]
+__all__ = ["uniform_dst", "worstcase_df_dst", "drawn", "worstcase_sf"]
 
 
 def uniform_dst(draw: torch.Tensor) -> torch.Tensor:
     """[.., n_ep] draws on [0, n_ep - 1) -> destination endpoints."""
     own = torch.arange(draw.shape[-1], dtype=draw.dtype, device=draw.device)
     return draw + (draw >= own).to(draw.dtype)
+
+
+def worstcase_df_dst(draw: torch.Tensor, per_group: int,
+                     groups: int) -> torch.Tensor:
+    """[.., n_ep] draws on [0, per_group) -> destination endpoints in the
+    next group of `groups`, `per_group` endpoints each."""
+    own = torch.arange(draw.shape[-1], dtype=draw.dtype, device=draw.device)
+    return ((own // per_group + 1) % groups) * per_group + draw
+
+
+def drawn(traffic: dict, n_ep: int):
+    """(high, to_dst) of a drawn pattern: each cycle's draw is `randint`
+    on [0, high) of [n_ep], int32, and `to_dst` maps it to destination
+    endpoints; None for a fixed permutation.  `traffic` is the
+    reference's: {"pattern": "uniform"}, or {"pattern": "worstcase_df",
+    "a": .., "p": .., "g": ..} from the reference's own fabric."""
+    if traffic["pattern"] == "uniform":
+        return n_ep - 1, uniform_dst
+    if traffic["pattern"] == "worstcase_df":
+        per_group, groups = traffic["a"] * traffic["p"], traffic["g"]
+        return per_group, lambda d: worstcase_df_dst(d, per_group, groups)
+    return None
 
 
 def worstcase_sf(tab: dict, link_seed: int):

@@ -1,6 +1,6 @@
 """Small cells of the benchmark for the CPU tests: the cells'
-configurations and traffic mixes cut to Slim Fly q=5 and the fat tree
-p=4, a few lanes and a hundred cycles."""
+configurations and traffic mixes cut to Slim Fly q=5, the fat tree p=4
+or a Dragonfly of h=2 or 3, a few lanes and a hundred cycles."""
 
 import json
 import sys
@@ -12,15 +12,18 @@ for p in (str(ROOT), str(ROOT / "src")):
         sys.path.insert(0, p)
 
 MANIFEST = json.loads((ROOT / "BENCHMARK.json").read_text())
+# the configuration whose switch settings a small cell of each fabric
+# takes (a Dragonfly takes Slim Fly's: the paper runs both alike)
+SETTINGS = {"slimfly": "sf-q19", "fattree3": "ft3-p22", "dragonfly": "sf-q19"}
 
 
 def small_cell(pattern="uniform", mode="ugal_l", fabric=("slimfly", 5),
                loads=(0.3, 0.9), seeds_per_load=1, cycles=100, warmup=30,
                lookahead=4, check_lanes=None, per_layer=()):
-    name = "sf-q19" if fabric[0] == "slimfly" else "ft3-p22"
-    cfg = json.loads((ROOT / f"sfbench/configs/{name}.json").read_text())
-    cfg.update(size=fabric[1], cycles=cycles, warmup=warmup,
-               lookahead=lookahead)
+    cfg = json.loads((ROOT / f"sfbench/configs/{SETTINGS[fabric[0]]}.json")
+                     .read_text())
+    cfg.update(topology=fabric[0], size=fabric[1], cycles=cycles,
+               warmup=warmup, lookahead=lookahead)
     # the control's change, at the small cell's own settings
     cfg["control"] = {k: cfg[k] - 1 for k in cfg["control"]}
     n = len(loads) * seeds_per_load

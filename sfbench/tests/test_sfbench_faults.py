@@ -1,8 +1,9 @@
 """A run with its timed path broken underneath comes out as not
 correct, once for each fault the cells can have (a step that leaves its
 state unchanged, half of the lanes left out, an answer altered where it
-is produced), and so does the control: the reference with a lookahead
-changed as its configuration names, in the program's place.  The harness's look for a card is
+is produced), and so does the control: the reference with a source
+queue one record shorter, as its configuration names, in the program's
+place.  The harness's look for a card is
 skipped: the run drives the program on the CPU at a small size."""
 
 import time
@@ -79,8 +80,9 @@ def test_fault_is_not_correct(fault, monkeypatch):
 @pytest.mark.parametrize("case", [
     dict(),
     dict(pattern="worstcase_sf", mode="min", loads=(0.2, 0.5)),
-    dict(mode="ecmp", fabric=("fattree3", 4))], ids=["ugal_l", "worstcase",
-                                                    "ecmp"])
+    dict(mode="ecmp", fabric=("fattree3", 4)),
+    dict(fabric=("dragonfly", 2))], ids=["ugal_l", "worstcase", "ecmp",
+                                         "dragonfly"])
 def test_control_is_not_correct(case):
     cell = small_cell(cycles=150, **case)
     out = control_numbers(cell, SEED, CPU)

@@ -1,9 +1,13 @@
 """The plain reference against `repro_torch` on the CPU, under the
 benchmark's own draws: tables, traffic and whole runs of small cells
-(Slim Fly q=5 and q=7, the fat tree p=4) agree exactly, and the
-comparison sees a perturbed result."""
+(Slim Fly q=5 and q=7, the fat tree p=4, Dragonflies of h=2 and 3)
+agree exactly, and the comparison sees a perturbed result."""
 
 import dataclasses
+import json
+import shutil
+import subprocess
+import sys
 import time
 from types import SimpleNamespace
 
@@ -13,20 +17,18 @@ import torch
 from sfbench import check, harness
 from sfbench.reference import fabric, routing
 from sfbench.reference import traffic as rtraffic
-from sfbench.tests._cells import small_cell
+from sfbench.tests._cells import ROOT, small_cell
 
 CPU = torch.device("cpu")
 
 
 @pytest.mark.parametrize("topology,size", [("slimfly", 5), ("slimfly", 7),
-                                           ("fattree3", 4), ("fattree3", 6)])
+                                           ("fattree3", 4), ("fattree3", 6),
+                                           ("dragonfly", 2), ("dragonfly", 3)])
 def test_tables_equal(topology, size):
-    from repro_torch.core import build_slimfly
-    from repro_torch.core.topologies import build_fattree3
     from repro_torch.sim import SimTables
     ecmp = topology == "fattree3"
-    topo = build_slimfly(size) if topology == "slimfly" else build_fattree3(
-        p=size)
+    topo = harness.program_fabric(topology, size)
     prog = SimTables.build(topo, device="cpu", ecmp=ecmp)
     adj, p, ep = fabric.build(topology, size)
     tab = routing.tables(adj, p, ep, ecmp=ecmp)
@@ -50,6 +52,75 @@ def test_worstcase_traffic_equal(q):
     assert active.sum() > 0
 
 
+def test_dragonfly_h7_is_the_papers():
+    adj, p, ep = fabric.dragonfly(7)
+    assert adj.shape == (1386, 1386) and p == 7 and len(ep) == 1386
+    assert (adj.sum(axis=1) == 20).all()
+    assert fabric.dragonfly_shape(7) == (14, 7, 99)
+
+
+def test_unknown_topology_raises(tmp_path):
+    assert set(harness.PROGRAM_FABRICS) == set(fabric.BUILDERS)
+    cell = small_cell()
+    with pytest.raises(ValueError, match="no topology 'torus'"):
+        harness.build_program(dict(cell["config"], topology="torus"),
+                              cell["traffic"], CPU)
+    with pytest.raises(ValueError, match="no topology 'torus'"):
+        fabric.build("torus", 4)
+    # run.py stops before any set-up, with no result line, and times no
+    # other fabric
+    bare = tmp_path / "bare"
+    shutil.copytree(ROOT / "sfbench", bare / "sfbench")
+    shutil.copy(ROOT / "BENCHMARK.json", bare)
+    manifest = json.loads((bare / "BENCHMARK.json").read_text())
+    cell = manifest["workloads"][0]
+    conf = next(c for c in manifest["configs"] if c["name"] == cell["config"])
+    cfg = json.loads((bare / conf["file"]).read_text())
+    (bare / conf["file"]).write_text(json.dumps(dict(cfg, topology="torus")))
+    p = subprocess.run(
+        [sys.executable, "sfbench/run.py", "--workload", cell["name"],
+         "--seed", "3000000019", "--seconds", "1", "--trace", "0"],
+        cwd=bare, capture_output=True, text=True, timeout=120,
+        env={"PATH": "/usr/bin:/bin"})
+    assert p.returncode != 0
+    assert p.stdout.strip() == ""
+    assert "no topology 'torus'" in p.stderr
+
+
+def test_worstcase_df_destinations_equal():
+    cell = small_cell(pattern="worstcase_df", fabric=("dragonfly", 3))
+    tables, tr, _, _ = harness.build_program(cell["config"], cell["traffic"],
+                                             CPU)
+    _, rt = harness.reference_inputs(cell["config"], cell["traffic"], CPU)
+    assert (rt["a"], rt["p"], rt["g"]) == (6, 3, 19)
+    seed = 2 ** 31 + 7
+    assert harness.traffic_numbers(tables, tr, rt, seed, CPU) == 0
+    n_ep = tables.n_endpoints
+    plain = tr.make_sampler
+
+    # one endpoint's drawn offset moved on by one
+    def moved(dev):
+        sample = plain(dev)
+
+        def one_off(source):
+            dst = sample(source).clone()
+            dst[5] = dst[5] + 1
+            return dst
+        return one_off
+    tr.make_sampler = moved
+    assert harness.traffic_numbers(tables, tr, rt, seed, CPU) == 1
+
+    # a draw on another range: every endpoint's destination is another
+    def narrow(dev):
+        def sample(source):
+            return plain(dev)(SimpleNamespace(
+                randint=lambda st, sh, lo, hi: source.randint(st, sh, lo,
+                                                              hi - 1)))
+        return sample
+    tr.make_sampler = narrow
+    assert harness.traffic_numbers(tables, tr, rt, seed, CPU) == n_ep
+
+
 def test_uniform_destinations_equal():
     cell = small_cell()
     tables, tr, _, _ = harness.build_program(cell["config"], cell["traffic"],
@@ -63,6 +134,12 @@ CASES = {
     "sf5-worstcase-min": dict(pattern="worstcase_sf", mode="min",
                               loads=(0.2, 0.5)),
     "ft4-uniform-ecmp": dict(mode="ecmp", fabric=("fattree3", 4)),
+    # Valiant paths of 6 hops, on VC min(hops, 3)
+    "df2-uniform-ugal_l": dict(fabric=("dragonfly", 2)),
+    "df3-worstcase_df-ugal_l": dict(pattern="worstcase_df",
+                                    fabric=("dragonfly", 3), loads=(0.2, 0.5)),
+    "df3-worstcase_df-min": dict(pattern="worstcase_df", mode="min",
+                                 fabric=("dragonfly", 3), loads=(0.2, 0.5)),
 }
 
 
