@@ -2,7 +2,7 @@
 """Device and host ms per cycle of each stage of the simulator loop, read
 from the program's own spans, on one cell of the benchmark.
 
-    python3 tools/profile_torch_stages.py --workload sf19-uniform-ugal_l-x40
+    python3 tools/profile_torch_stages.py --workload df7-uniform-ugal_l-x40
         [--seed N] [--cycles 50]
 
 Sets the cell up as `sfbench/harness.py` does (its configuration,
